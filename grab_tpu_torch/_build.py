@@ -2,8 +2,9 @@
 
 Two kinds, both with a plain C interface loaded through ``ctypes``:
 
-  * CUDA kernels: each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
-    Hopper (``sm_90a``) into ``lib<name>-<hash>.so``;
+  * CUDA kernels: each ``csrc/<name>.cu`` (with the shared
+    ``csrc/*.cuh`` headers) is compiled by ``nvcc`` for Hopper
+    (``sm_90a``) into ``lib<name>-<hash>.so``;
   * host ingest: ``ingest/native/ingest.cc`` is compiled by ``g++`` into
     ``libgtingest-<hash>.so``.
 
@@ -52,10 +53,13 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _target(name: str, src: str, flags: Sequence[str]) -> str:
+def _target(
+    name: str, src: str, flags: Sequence[str], deps: Sequence[str] = ()
+) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in (src, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update("\0".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
@@ -91,7 +95,11 @@ def _finish(proc: subprocess.Popen, tmp: str, out: str, timeout: float) -> None:
 
 def _cuda_cmd(name: str) -> "tuple[List[str], str]":
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    return [_nvcc(), *NVCC_FLAGS, src], _target(name, src, NVCC_FLAGS)
+    # the shared headers (csrc/*.cuh) are part of every kernel's key
+    headers = sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")
+    )
+    return [_nvcc(), *NVCC_FLAGS, src], _target(name, src, NVCC_FLAGS, headers)
 
 
 def build_cuda(names: Sequence[str], timeout: float = 600.0) -> Dict[str, str]:

@@ -32,7 +32,8 @@
 // word in a register, so the bitmap needs no shared memory and no
 // cross-thread sum. The lane-OR is one __reduce_or_sync per warp and
 // four shared words; the count is one atomicAdd of an exact integer per
-// flagged group, so the result is deterministic. The (val, mask) table,
+// flagged group, so the result is deterministic (word_epilogue.cuh,
+// shared with classseq.cu). The (val, mask) table,
 // at most 2*4*16*2 int32 = 1 KiB, travels by value as a kernel argument;
 // every thread reads the same entry at a compile-time index, which the
 // constant bank broadcasts. K, W and masked are template parameters (20
@@ -46,10 +47,12 @@
 
 #include <cuda_runtime.h>
 
+#include "word_epilogue.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;     // words per row (one candidate block)
-constexpr int kGroupRows = 32;  // rows folded into one bitmap word
+using grab_word::kGroupRows;
+constexpr int kLanes = grab_word::kWordLanes;
 constexpr int kMaxK = 16;
 constexpr int kMaxW = 2;
 
@@ -92,17 +95,7 @@ __global__ void __launch_bounds__(kLanes)
     }
     bits |= hit << r;
   }
-  bm[static_cast<size_t>(g) * kLanes + c] = static_cast<int32_t>(bits);
-
-  __shared__ uint32_t warp_or[kLanes / 32];
-  const uint32_t w_or = __reduce_or_sync(0xffffffffu, bits);
-  if ((c & 31) == 0) warp_or[c >> 5] = w_or;
-  __syncthreads();
-  if (c == 0) {
-    const uint32_t any = warp_or[0] | warp_or[1] | warp_or[2] | warp_or[3];
-    packed[g] = static_cast<int32_t>(any);
-    if (any) atomicAdd(total, 1);
-  }
+  grab_word::row_bitmap_epilogue(bits, g, c, bm, packed, total);
 }
 
 struct Args {
@@ -160,7 +153,7 @@ int gt_core_word_scan(const void* words, const int32_t* tab, int k,
   a.total = static_cast<int32_t*>(total);
   a.groups = static_cast<unsigned>(groups);
   a.stream = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(total, 0, sizeof(int32_t), a.stream);
+  err = grab_word::zero_total(total, a.stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   bool ok = false;
   switch (k) {

@@ -415,8 +415,8 @@ class Engine:
 
     def _check_port(self) -> None:
         """Refuse, at construction, what the port cannot serve yet:
-        several shards, and device plans other than the core-word
-        literal plan (building the DeviceScanner raises for those). A
+        several shards, and device plans outside the literal, class_seq
+        and gdfa modes (building the DeviceScanner raises for those). A
         missing CUDA card raises here too."""
         if self.cfg.device == "none":
             return
@@ -514,10 +514,11 @@ class Engine:
             # -E promises every match at any length. Covered plans and
             # the class-run prefilter have tiny trigger windows (<= 32
             # bytes <= the 4 KiB segment halo). In the reference the
-            # strided-DFA kernel serves any other length; only
+            # strided-DFA kernel serves any other length (threading
+            # fixpoint in-buffer; no-split packing and full replay of
+            # oversize files across batches, _dfa_tier_unbounded); only
             # stride-ineligible automata (> 2048 states, or class/run
-            # capacity blown) scan on the host, here as there. An
-            # eligible one is the dfa/gdfa tier, refused until ported.
+            # capacity blown) scan on the host, here as there.
             if DeviceScanner._alpha_eligible(cp.alpha_plan):
                 return True
             if cp.max_len is None or cp.max_len > HALO - 8:
@@ -542,14 +543,30 @@ class Engine:
         )
 
     def _stride_serves(self) -> bool:
-        """True when the reference's device scan would take the
-        strided-DFA kernel (its eligibility: ops/stridedfa.stride_plan).
-        That kernel is not ported yet (ROADMAP A5), so such a plan is
-        refused when the Engine is built, never scanned on the host."""
+        """True when the device scan takes the strided-DFA kernel (its
+        eligibility: ops/stridedfa.stride_plan). The reference asks this
+        of its accelerator or interpret mode; the port's CPU device runs
+        the kernel's plain version, so it serves there too."""
         from grab_tpu_torch.ops.stridedfa import stride_plan
 
         cp = self.compiled
         return cp.dfa is not None and stride_plan(cp.dfa) is not None
+
+    def _dfa_tier_unbounded(self) -> bool:
+        """Unbounded-length pattern served by the DFA tier: matches can
+        exceed the 4 KiB packer halo, so (a) buffers are packed without
+        file splits and (b) files larger than one buffer are fully
+        replayed on the host regardless of device flags (their counts
+        cannot be trusted across batch boundaries). Covered plans and
+        the class-run prefilter are exempt: any match contains a tiny
+        trigger (factor / class run) that cannot span a batch halo, and
+        a single flag already widens the replay to the full window."""
+        cp = self.compiled
+        if cp.covered:
+            return False
+        if DeviceScanner._alpha_eligible(cp.alpha_plan):
+            return False
+        return cp.max_len is None or cp.max_len > HALO - 8
 
     def _get_scanner(self):
         # buffer size: the user's scan_buf_size or the device default
@@ -601,7 +618,9 @@ class Engine:
                 self._replay(path, data, None, emit)
                 st.wall_replay += time.monotonic() - t0
             return 0
-        pipeline = CorpusPipeline(self._get_scanner())
+        scanner = self._get_scanner()
+        unbounded = self._dfa_tier_unbounded()
+        pipeline = CorpusPipeline(scanner, no_split=unbounded)
         t_last = time.monotonic()
         for path, data, counts in pipeline.run(files):
             now = time.monotonic()
@@ -609,7 +628,13 @@ class Engine:
             st.files_scanned += 1
             st.bytes_scanned += len(data)
             st.candidate_blocks += int((counts > 0).sum())
-            if counts.any():
+            if unbounded and len(data) > scanner.buf_size:
+                # spans batches: device flags cannot be trusted across
+                # the boundary for unbounded matches — full exact replay
+                t0 = time.monotonic()
+                self._replay(path, data, None, emit)
+                st.wall_replay += time.monotonic() - t0
+            elif counts.any():
                 t0 = time.monotonic()
                 self._replay(path, data, counts, emit)
                 st.wall_replay += time.monotonic() - t0
@@ -655,7 +680,9 @@ class Engine:
                 if on_done is not None:
                     on_done(path)
             return 0
-        pipeline = CorpusPipeline(self._get_scanner())
+        scanner = self._get_scanner()
+        unbounded = self._dfa_tier_unbounded()
+        pipeline = CorpusPipeline(scanner, no_split=unbounded)
         t_last = time.monotonic()
         for path, size, counts, err in pipeline.run_paths(entries):
             now = time.monotonic()
@@ -670,7 +697,9 @@ class Engine:
             st.files_scanned += 1
             st.bytes_scanned += size
             st.candidate_blocks += int((counts > 0).sum())
-            if counts.any():
+            if unbounded and size > scanner.buf_size:
+                counts = None  # spans batches: force full exact replay
+            if counts is None or counts.any():
                 t0 = time.monotonic()
                 try:
                     data = self._open_data(path, size)

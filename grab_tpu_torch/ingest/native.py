@@ -283,6 +283,10 @@ def transpose_stream_rows(
             nthreads,
         )
         return dst
+    if out is not None:
+        assert out.shape == (row_words, n_rows) and out.dtype == np.int32
+        np.copyto(out, src.T)
+        return out
     return np.ascontiguousarray(src.T)
 
 

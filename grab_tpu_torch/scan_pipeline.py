@@ -2,13 +2,26 @@
 generation.
 
 Files are packed into fixed-size scan buffers (ingest/packer.py) and
-each buffer is uploaded and scanned by the device kernel; only a count
-and packed per-block candidate flags come back to the host. This is
-the port of the JAX package's scan_pipeline.py for the literal tier:
-``DeviceScanner`` routes a compiled pattern set the way the reference
-does and serves the plans that reach the single core-word kernel
-(ops/corewords.py). Every other plan is refused with the tier and its
-ROADMAP item (``NotPortedError``), never quietly replayed on the host.
+each buffer is uploaded and scanned by a device kernel; only a count
+and the candidate flags' compact form come back to the host. This is
+the port of the JAX package's scan_pipeline.py. ``DeviceScanner``
+routes a compiled pattern set the way the reference does and serves
+three device modes:
+
+  * literal: a covered literal set, one core-word scanner
+    (ops/corewords.py, kernel csrc/corewords.cu);
+  * class_seq: covered class sequences and no literals, served by the
+    union strided-DFA member when the sequences' automaton is bounded
+    and has a stride plan (``_StrideSeqMember``, csrc/stridedfa.cu),
+    else by the class-sequence kernel (ops/classseq.py,
+    csrc/classseq.cu);
+  * gdfa: uncovered patterns with an automaton of at most 2048 states
+    and a stride plan, including unbounded ``-E`` patterns (the
+    strided-DFA walk with its window pass or threading fixpoint,
+    ops/stridedfa.py).
+
+Every other plan is refused with its tier and ROADMAP item
+(``NotPortedError``), never quietly replayed on the host.
 ``CorpusPipeline`` is the reference's, unchanged: its one-deep double
 buffering overlaps host packing of the next batch with the device's
 upload and scan of this one.
@@ -21,12 +34,21 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from grab_tpu_torch.ops.classseq import ClassSeqScanner, compile_sequences
 from grab_tpu_torch.ops.corewords import LANES, PAD_ROWS, CoreWordScanner
+from grab_tpu_torch.ops.stridedfa import (
+    HALO as STRIDE_HALO,
+    N_STREAMS,
+    STREAM_ROWS,
+    StrideDfaScanner,
+    stride_plan,
+)
 
 CANDIDATE_BLOCK = 512
 HALO = 0x1000  # reference overlap (grab.cc:151)
 MAX_KERNEL_LITERALS = 16  # one compare bucket of the core-word kernel
 MAX_LONG_LITERALS = 4  # more 7+-byte literals go to the XOR filter
+MIN_STRIDE_BUF = 1 << 20  # smaller buffers take the reference's jnp walk
 
 
 class NotPortedError(ValueError):
@@ -53,19 +75,23 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-def plan_refusal(cp) -> Optional[str]:
-    """Why the device plan of compiled pattern ``cp`` is outside the
-    port, or None when it is the literal plan served by ONE core-word
-    scanner. Mirrors the reference routing (scan_pipeline.py
+def plan_refusal(cp, buf_size: int) -> Optional[str]:
+    """Why the device plan of compiled pattern ``cp`` at scan buffer
+    ``buf_size`` is outside the port, or None when a ported mode serves
+    it. Mirrors the reference routing (scan_pipeline.py
     DeviceScanner.__init__ and _build_pallas): a covered literal plan
     with at most 16 literals, at most 4 of them 7+ bytes long, and no
     class sequences gives a fused ensemble of one member, which the
-    reference replaces by its split path's single CoreWordScanner."""
+    reference replaces by its split path's single CoreWordScanner; a
+    covered class-sequence plan is the class_seq mode; an uncovered
+    automaton of at most 2048 states whose alphabet-run plan is not
+    eligible is the gdfa mode when it has a stride plan and the buffer
+    is at least 1 MiB."""
     if cp.covered and cp.literals:
         if cp.class_seqs:
             return (
-                "literal plan with class sequences needs the class-seq "
-                "member (ROADMAP A8)"
+                "literal plan with class sequences needs the fused ensemble "
+                "and its class-seq member (ROADMAP A8, A9)"
             )
         if sum(len(l) >= 7 for l in cp.literals) > MAX_LONG_LITERALS:
             return (
@@ -79,16 +105,23 @@ def plan_refusal(cp) -> Optional[str]:
             )
         return None
     if cp.covered and cp.class_seqs:
-        return "class-sequence plan needs the class-seq tier (ROADMAP A8)"
+        return None
     # uncovered: the reference scans a class-run plan with the
     # alphabet-run kernel first, else walks the automaton
     if DeviceScanner._alpha_eligible(cp.alpha_plan):
         return "class-run plan needs the alphabet-run tier (ROADMAP A7)"
     if cp.dfa is not None and cp.dfa.n_states <= 2048:
-        return (
-            "automaton plan needs the dfa/gdfa exact-automaton tier "
-            "(ROADMAP A5, A6)"
-        )
+        if stride_plan(cp.dfa) is None:
+            return (
+                "automaton without a strided-DFA plan needs the last-resort "
+                "DFA walk (ROADMAP A6)"
+            )
+        if buf_size < MIN_STRIDE_BUF:
+            return (
+                f"a scan buffer under {MIN_STRIDE_BUF} bytes needs the "
+                "last-resort DFA walk (ROADMAP A6)"
+            )
+        return None
     return "pattern has no device-scannable form"
 
 
@@ -118,14 +151,15 @@ class _PinnedUploader:
         self._stream = torch.cuda.Stream(device)
         self._next = 0
 
-    def run(self, buf: np.ndarray, fn):
-        """Upload ``buf`` (uint8, exactly nbytes) and return ``fn(dev)``
-        launched on the current stream after the copy."""
+    def run(self, fill, fn):
+        """``fill(staging)`` writes the batch into the free slot's pinned
+        uint8 numpy buffer; it is uploaded and ``fn(dev)`` launched on
+        the current stream after the copy."""
         i = self._next
         self._next = (i + 1) % self.DEPTH
         if self._copied[i] is not None:
             self._copied[i].synchronize()
-        np.copyto(self._host[i].numpy(), buf)
+        fill(self._host[i].numpy())
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
             if self._consumed[i] is not None:
@@ -140,6 +174,32 @@ class _PinnedUploader:
         consumed.record(compute)
         self._consumed[i] = consumed
         return out
+
+
+class _StrideSeqMember:
+    """The class_seq mode's union strided-DFA member: every sequence
+    routed pattern in ONE bounded automaton walk (the compiler's
+    seq_dfa), window mode only. Its hits are exact union match ends, a
+    tighter candidate set than prefix-sequence starts; the host replay
+    is the same. It consumes the buffer born in the walk's stream-major
+    layout (``prep_t``), so no linear upload is made for it."""
+
+    def __init__(self, dfa, max_len, buf_size: int):
+        self.sc = StrideDfaScanner(dfa, max_len, buf_size)
+        assert self.sc.window_mode  # bounded patterns only (single pass)
+
+    @property
+    def s_w(self) -> int:
+        return self.sc.s_w
+
+    def prep_t(self, buf: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+        return self.sc.prep_t(buf, out=out)
+
+    def packed_t(self, w2d_t: torch.Tensor):
+        return self.sc.packed_t(w2d_t)
+
+    def flags_np(self, bm, n_blocks: int) -> np.ndarray:
+        return self.sc.flags_np(np.asarray(bm).reshape(-1, LANES), n_blocks)
 
 
 class DeviceScanner:
@@ -167,12 +227,26 @@ class DeviceScanner:
             )
         self.buf_size = buf_size
         self.block = block
-        why = plan_refusal(compiled)
+        cp = compiled
+        why = plan_refusal(cp, buf_size)
         if why is not None:
             raise NotPortedError(f"{why}: not ported to the GPU yet")
-        self._cw = CoreWordScanner(compiled.literals)
+        if cp.covered and cp.literals:
+            self.mode = "literal"
+            member = CoreWordScanner(cp.literals)
+        elif cp.covered and cp.class_seqs:
+            self.mode = "class_seq"
+            member = self._seq_scanner(cp)
+        else:
+            self.mode = "gdfa"
+            member = self._gdfa = StrideDfaScanner(cp.dfa, cp.max_len, buf_size)
+        self.members = [member]
+        # stride routes upload the buffer born transposed, the word
+        # kernels the linear words with their zero pad rows
+        self._transposed = isinstance(member, (_StrideSeqMember, StrideDfaScanner))
         self._want = buf_size + PAD_ROWS * LANES * 4
-        self._uploader = _PinnedUploader(self._want, self.device) if on_gpu else None
+        nbytes = member.s_w * N_STREAMS * 4 if self._transposed else self._want
+        self._uploader = _PinnedUploader(nbytes, self.device) if on_gpu else None
 
     @staticmethod
     def _alpha_eligible(plan) -> bool:
@@ -180,11 +254,32 @@ class DeviceScanner:
 
         return plan is not None and alpharun_eligible(plan[0], plan[1])
 
-    def _packed(self, raw: torch.Tensor):
-        return self._cw.packed(raw.view(torch.int32).view(-1, LANES))
+    def _seq_scanner(self, cp):
+        """The class_seq mode's member (the reference's
+        ``_seq_scanner(standalone=True)``): the union strided-DFA member
+        when the sequences' automaton is bounded within the window reach
+        and has a stride plan, and the buffer is at least 1 MiB; else
+        the class-sequence word kernel."""
+        sd, sml = cp.seq_dfa, cp.seq_max_len
+        if (
+            sd is not None
+            and sml is not None
+            and sml <= STRIDE_HALO - 8
+            and stride_plan(sd) is not None
+            and self.buf_size >= MIN_STRIDE_BUF
+        ):
+            return _StrideSeqMember(sd, sml, self.buf_size)
+        return ClassSeqScanner(compile_sequences(cp.class_seqs))
+
+    def _scan(self, member, dev_buf: torch.Tensor):
+        """(total int32 [1], payload) of one uploaded buffer (uint8)."""
+        if self._transposed:
+            w2d = dev_buf.view(torch.int32).view(member.s_w * STREAM_ROWS, LANES)
+            return member.packed_t(w2d)
+        return member.packed(dev_buf.view(torch.int32).view(-1, LANES))
 
     def submit(self, buf: np.ndarray):
-        """Start the scan of one packer buffer; returns (total, packed,
+        """Start the scan of one packer buffer; returns (total, payload,
         ready). On the GPU the upload, the kernel and the count's copy
         into pinned host memory are queued asynchronously, so the host
         goes on packing the next batch; ``ready`` marks the count's
@@ -193,28 +288,45 @@ class DeviceScanner:
         if buf.shape[0] < want:  # caller without the packer's tail
             buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
         buf = buf[:want]
+        member = self.members[0]
+        lin = buf[: self.buf_size]
         if self._uploader is None:
-            total, packed = self._packed(torch.from_numpy(buf))
-            return total, packed, None
-        total, packed = self._uploader.run(buf, self._packed)
+            if self._transposed:
+                raw = torch.from_numpy(member.prep_t(lin).reshape(-1).view(np.uint8))
+            else:
+                raw = torch.from_numpy(buf)
+            total, payload = self._scan(member, raw)
+            return total, payload, None
+        if self._transposed:
+            # the host transpose writes straight into the pinned slot
+
+            def fill(staging):
+                member.prep_t(lin, out=staging.view(np.int32).reshape(member.s_w, N_STREAMS))
+        else:
+
+            def fill(staging):
+                np.copyto(staging, buf)
+
+        total, payload = self._uploader.run(fill, lambda dev: self._scan(member, dev))
         host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
         host_total.copy_(total, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return host_total, packed, ready
+        return host_total, payload, ready
 
     def resolve(self, handles) -> np.ndarray:
         """Wait for a submitted scan → int32 [buf_size/block] 0/1 flags.
         A clean batch costs one 4-byte pull, waited for by its own
-        event, not by a sync of the batches queued after it; the packed
-        flags leave the device only when the count is nonzero."""
+        event, not by a sync of the batches queued after it; the
+        payload (packed flags or the strided-DFA bitmap) leaves the
+        device only when the count is nonzero."""
         nb = self.buf_size // self.block
-        total, packed, ready = handles
+        total, payload, ready = handles
         if ready is not None:
             ready.synchronize()
         if int(total) == 0:
             return np.zeros(nb, dtype=np.int32)
-        return self._cw.flags_np(packed.cpu().numpy(), nb)
+        return self.members[0].flags_np(payload.cpu().numpy(), nb)
 
 
 class CorpusPipeline:

@@ -81,7 +81,8 @@ def planted(tmp_path_factory):
     return root
 
 
-# in-slice conformance CASES (n[a-z]+e is a class-seq plan: refused below)
+# the conformance CASES: literal plans, and class-sequence plans
+# (n[a-z]+e, [0-9]{3}, ...) served by the class_seq mode
 CONFORMANCE = [
     ([], "needle"),
     (["-O"], "needle"),
@@ -91,6 +92,11 @@ CONFORMANCE = [
     ([], "ne+dle"),
     ([], "zzznotfound"),
     (["-O"], r"\bneedle\b"),
+    (["-O"], "n[a-z]+e"),
+    (["-O"], "[0-9]{3}"),
+    ([], "[a-z]{4}[ ;]"),
+    (["-O"], "[A-Za-z]{6}"),
+    (["-l"], "[xy]{12}"),
 ]
 
 
@@ -112,6 +118,10 @@ FLAG_CASES = [
     ["-r", "zQx##missing##"],
     ["-r", "(needle)"],  # PCRE1 capture quirk: host-only, no output
     ["-r", "needle|nothing"],
+    ["-S", "-r", "ne"],  # a 2-byte literal is a class-sequence plan
+    ["-E", "-r", ".{0,2}[a-z ]{11,}"],  # gdfa, threading fixpoint
+    ["-r", "-O", ".{0,2}[a-z ]{11}"],  # gdfa, boundary windows
+    ["-E", "-r", "-O", "[0-9]{4,}"],  # class_seq, unbounded: the word kernel
 ]
 
 
@@ -196,15 +206,19 @@ def test_device_scanner_flags_match_reference(planted):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["-O", "n[a-z]+e"], "ROADMAP A8"),
-        ([".{0,2}[a-z ]{11}"], "ROADMAP A5"),
-        (["-E", ".{0,2}[a-z ]{11,}"], "ROADMAP A5"),  # unbounded: the stride tier
-        ([".{0,2}[0-9]{11}"], "ROADMAP A7"),
+        ([".{0,2}[0-9]{11}"], "ROADMAP A7"),  # alphabet-run plan
+        # no stride plan (1001 states x 6 classes): the last-resort walk
+        ([".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"], "ROADMAP A6"),
+        (["-H", "@needle+seq"], "ROADMAP A8"),  # literals with sequences
         (["-n", "4", "needle"], "ROADMAP A10"),
         (["--hosts", "2", "needle"], "ROADMAP A11"),
     ],
 )
-def test_out_of_slice_refused(corpus, argv, item):
+def test_out_of_slice_refused(corpus, tmp_path, argv, item):
+    if argv[-1] == "@needle+seq":
+        pats = tmp_path / "pats.txt"
+        pats.write_bytes(b"needle\n[0-9]{3}[a-z]{2}\n")
+        argv = argv[:-1] + [str(pats)]
     rc, out, err = _run(port_cli, argv[:-1] + ["-r", argv[-1], str(corpus)])
     assert rc == 255 and out == b""
     lines = err.strip().splitlines()
@@ -240,3 +254,72 @@ def test_trace_writes_profile(corpus, tmp_path):
     rc, out, _ = _run(port_cli, argv)
     assert rc == 0 and out == _run(ref_cli, argv[2:])[1]
     assert (d / "trace.json").stat().st_size > 0
+
+
+# -- -E and factor-less patterns over a multi-batch corpus ----------------
+
+# uncovered (no factor, no class sequence, no alphabet-run plan),
+# unbounded: the gdfa mode's threading fixpoint (tests/test_exact_unbounded_device.py)
+UNBOUNDED = r".{0,2}(?:[0-9a-zA-Z]{4})+"
+
+
+@pytest.fixture(scope="module")
+def punct(tmp_path_factory):
+    """Punctuation-heavy files in which alnum runs of 4+ (the matches)
+    occur only where planted: runs crossing 128-byte stream strides,
+    one over 4 KiB, one across the 2 MiB batch edge of a 3 MiB file
+    (fully replayed: unbounded matches can span batches), and small
+    files that the no-split packer keeps whole."""
+    root = tmp_path_factory.mktemp("punct")
+    rng = np.random.default_rng(5)
+    sym = np.frombuffer(b" -_=+()\n", dtype=np.uint8)
+
+    def mk(name, size, plants):
+        data = bytearray(rng.choice(sym, size=size).tobytes())
+        for pos, span in plants:
+            data[pos : pos + span] = (b"a1B2" * (span // 4 + 1))[:span]
+        (root / name).write_bytes(bytes(data))
+
+    (root / "sub").mkdir()
+    mk("a.txt", 1 << 20, [(5000, 8), (131030, 300), (524288 - 10, 5000), (900001, 4)])
+    mk("big.bin", 3 << 20, [((2 << 20) - 3000, 8000), (70000, 200)])
+    for i in range(6):
+        mk(f"sub/s{i}.txt", 150_000 + 7_777 * i, [(1000 * i + 17, 4 + 3 * i)])
+    return root
+
+
+UNBOUNDED_CASES = [
+    ["-E", "-r", UNBOUNDED],
+    ["-E", "-r", "-O", UNBOUNDED],
+    ["-r", UNBOUNDED],  # default mode: chunk grammar, same device flags
+    ["-E", "-r", "-l", "[0-9a-zA-Z]{12,}"],  # class_seq, unbounded
+]
+
+
+@pytest.mark.parametrize("argv", UNBOUNDED_CASES, ids=[" ".join(a) for a in UNBOUNDED_CASES])
+def test_unbounded_corpus_identical(punct, argv):
+    argv = argv + [str(punct)]
+    rc, out, _ = _run(port_cli, argv)
+    assert (rc, out) == _run(ref_cli, argv)[:2]
+    assert out.count(b"\n") >= 4
+
+
+def test_unbounded_engine_routes_gdfa_and_replays_oversize(punct):
+    """The gdfa mode with the threading fixpoint serves the -E pattern
+    on the CPU device; a file over one buffer is fully replayed."""
+    from grab_tpu_torch.engine import Engine, EngineConfig
+    from grab_tpu_torch.format.emitter import OutputConfig
+
+    cfg = EngineConfig(output=OutputConfig(colored=False), exact=True, device="cpu")
+    eng = Engine([UNBOUNDED.encode()], cfg)
+    assert eng._device_usable() and eng._dfa_tier_unbounded()
+    sc = eng._get_scanner()
+    assert sc.mode == "gdfa" and not sc._gdfa.window_mode
+    data = (punct / "big.bin").read_bytes()
+    out = []
+    eng.scan_data("big.bin", data, out.append)
+    host = Engine([UNBOUNDED.encode()], EngineConfig(
+        output=OutputConfig(colored=False), exact=True, device="none"))
+    want = []
+    host.scan_data("big.bin", data, want.append)
+    assert b"".join(out) == b"".join(want) != b""

@@ -117,3 +117,141 @@ def test_device_scanner_pipelined_flags_match_cpu(cuda):
         want = cpu.resolve(cpu.submit(b))
         assert g.dtype == want.dtype and (g == want).all()
     assert not got[1].any() and got[0].any() and got[3].any()
+
+
+# -- class-sequence (B4) and strided-DFA (B2) kernels -------------------------
+
+HIGH = sum(1 << b for b in range(0x80, 0xC0)) | (1 << 0xFF)
+DIGIT = sum(1 << b for b in range(48, 58))
+
+
+def _seq_sets():
+    from grab_tpu_torch.ops.classseq import compile_sequences
+
+    rng = np.random.default_rng(32)
+    many = []
+    for i in range(32):
+        seq = []
+        for j in range(1 + i % 8):
+            lo = int(rng.integers(0, 250))
+            m = sum(1 << b for b in range(lo, lo + 1 + int(rng.integers(0, 6))))
+            seq.append(m | (HIGH if (i + j) % 5 == 0 else 0))
+        many.append(tuple(seq))
+    eight = [tuple([DIGIT] * (1 + i)) for i in range(7)] + [(HIGH, DIGIT, HIGH)]
+    return [compile_sequences(s) for s in ([(DIGIT,) * 5], eight, many)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["text", "binary", "zeros"])
+def test_classseq_kernel_matches_plain(cuda, kind):
+    from grab_tpu_torch.ops import classseq as cs
+
+    for i, seqs in enumerate(_seq_sets()):
+        w = torch.from_numpy(_words(kind, [b"12345", b"\x80" + b"7" * 8], i)).to(cuda)
+        before = cs.classseq_flags.launches
+        got = cs.classseq_flags(w, seqs)
+        assert cs.classseq_flags.launches == before + 1
+        bm = cs.classseq_bitmap_torch(w, seqs)
+        want = cw.packed_block_flags(bm) + (bm,)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x)
+        assert int(got[0].item()) > 0
+
+
+STRIDE_PATTERNS = [
+    rb"[0-9]{5}", rb"[0-9a-f]{4}", rb"needle|[a-z]{3}[0-9]{3}", rb"[acegikmoqsuwy]{3}",
+    rb"[adgjmpsvy]{3}", rb".{0,2}[a-z ]{11,}", rb"[0-9]{200}", rb"[0-9]{1500}",
+]
+
+
+def _stride_words(seed: int, n_words: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"0123456789abcdefgxyz acegikmoqsuwy \n-AZ\x80\xff", np.uint8)
+    raw = rng.choice(alpha, size=(n_words * 128, LANES, 4))
+    return np.ascontiguousarray(raw).view("<i4").reshape(n_words * 128, LANES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [8, 40, 512])
+def test_stride_walk_matches_plain(cuda, n_words):
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    rng = np.random.default_rng(n_words)
+    for pat in STRIDE_PATTERNS:
+        dfa = compile_multi([pat]).dfa
+        t = sd.StrideDfaTables(dfa, sd.stride_plan(dfa))
+        w = torch.from_numpy(_stride_words(n_words, n_words)).to(cuda)
+        for ent in (np.full((128, LANES), t.start, np.int32),
+                    rng.integers(0, t.n_states, (128, LANES), dtype=np.int32)):
+            e = torch.from_numpy(ent).to(cuda)
+            before = sd.stride_dfa_scan.launches
+            bm, ex = sd.stride_dfa_scan(w, t, e)
+            assert sd.stride_dfa_scan.launches == before + 1
+            bm_p, ex_p = sd.stride_dfa_scan_torch(w, t, e)
+            torch.cuda.synchronize()
+            assert torch.equal(bm, bm_p) and torch.equal(ex, ex_p), (pat, t.mode, t.k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_rounds", [24, 2])
+def test_stride_fixpoint_matches_plain(cuda, monkeypatch, max_rounds):
+    """Threading across streams: walks run, convergence and the bitmap
+    (all ones at the round cap) equal the plain loop's."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    monkeypatch.setattr(sd, "MAX_ROUNDS", max_rounds)
+    cp = compile_multi([rb"a[0-9]*b"])
+    sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, 2 << 20)  # stride 128 B
+    buf = np.full(2 << 20, ord(" "), dtype=np.uint8)
+    for start, end in ((50, 77), (1000, 1700), (300_000, 300_050)):
+        buf[start] = ord("a")
+        buf[start + 1 : end] = ord("7")
+        buf[end] = ord("b")
+    w = torch.from_numpy(sc.prep_t(buf))
+    bm_p, n_p, conv_p = sd.stride_fixpoint_torch(w, sc.tables, max_rounds)
+    before = sd.stride_dfa_scan.launches
+    bm, n, conv = sc.run_t(w.to(cuda))
+    assert sd.stride_dfa_scan.launches == before + max_rounds
+    torch.cuda.synchronize()
+    assert (int(n), bool(conv)) == (n_p, conv_p)
+    assert torch.equal(bm.cpu(), bm_p)
+    assert conv_p == (max_rounds == 24)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", [rb"[A-Z]{6}[0-9]{6}", rb"\t[0-9]+\t",
+                                     rb".{0,2}[a-z ]{11}", rb".{0,2}(?:[0-9a-zA-Z]{4})+"])
+def test_device_scanner_new_routes_match_cpu(cuda, pattern):
+    """class_seq (stride member, word kernel) and gdfa (windows,
+    threading), two batches in flight: flags equal the CPU scanner's."""
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    buf_size = 2 << 20
+    cp = compile_multi([pattern])
+    dev = DeviceScanner(cp, buf_size=buf_size, device="cuda")
+    cpu = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    assert dev.mode == cpu.mode and type(dev.members[0]) is type(cpu.members[0])
+    rng = np.random.default_rng(9)
+    bufs = []
+    for i in range(4):
+        b = rng.choice(np.frombuffer(b" -_=+()\nabcxyz", np.uint8), size=buf_size + 4096)
+        b[buf_size:] = 0
+        for pos in (100 + i, 4093, buf_size // 3, buf_size - 40):
+            for k, s in enumerate((b"QWERTY123456", b"\t42\t", b"abc def ghij", b"a1B2c3D4e5")):
+                b[pos + 13 * k : pos + 13 * k + len(s)] = np.frombuffer(s, np.uint8)
+        bufs.append(b)
+    bufs[1][:] = 0
+    pending = [dev.submit(bufs[0])]
+    got = []
+    for b in bufs[1:]:
+        pending.append(dev.submit(b))
+        got.append(dev.resolve(pending.pop(0)))
+    got.append(dev.resolve(pending.pop(0)))
+    for g, b in zip(got, bufs):
+        want = cpu.resolve(cpu.submit(b))
+        assert g.dtype == want.dtype and (g == want).all()
+    assert got[0].any() and not got[1].any()

@@ -1,0 +1,337 @@
+"""The port's strided-DFA tier against the JAX package's.
+
+Tables, the plain PyTorch walk (bitmap and exit states), the boundary
+windows, the threading fixpoint (walks run, round cap included), the
+scanner's decoded flags and the DeviceScanner's gdfa routing must equal
+the reference's exactly (tolerance: exact — every output is integer
+bits). The reference runs its Pallas kernel in interpret mode on the
+CPU and its numpy oracle. The CUDA kernel itself runs only on the card:
+tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from grab_tpu.ops import pallas_stridedfa as ref
+from grab_tpu.regex.compiler import compile_multi as ref_compile
+from grab_tpu_torch.ops import stridedfa as port
+from grab_tpu_torch.regex.compiler import compile_multi
+
+STREAM_ROWS, LANES, N_STREAMS = 128, 128, 128 * 128
+
+# one pattern per plan family the planner emits (tests/test_stridedfa.py)
+FAMILIES = [
+    (rb"[0-9]{5}", ("run", 4)),
+    (rb"[0-9a-f]{4}", ("run", 2)),
+    (rb"a[0-9]*b", ("run", 2)),
+    (rb"needle|[a-z]{3}[0-9]{3}", ("run", 1)),
+    (rb"[acegikmoqsuwy]{3}", ("runp", 2)),
+    (rb"[adgjmpsvy]{3}", ("cls", 4)),
+    (rb".{0,2}[a-z ]{11,}", ("cls", 2)),
+    (rb".{0,2}[a-y]{200}", ("run16", 1)),
+    (rb"[0-9]{200}", ("cls16", 2)),
+    (rb"[acegikmoqsuwy]{150}", ("cls16", 2)),
+    (rb"[0-9]{1500}", ("cls16", 1)),
+]
+FAMILY_IDS = [f"{p.decode()}-{m}{k}" for p, (m, k) in FAMILIES]
+ALPHABET = np.frombuffer(b"0123456789abcdefgxyz acegikmoqsuwy \n-AZ\x80\xff", np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(pattern):
+    r = ref_compile([pattern]).dfa
+    p = compile_multi([pattern]).dfa
+    return ref.StrideDfaTables(r, ref.stride_plan(r)), port.StrideDfaTables(p, port.stride_plan(p))
+
+
+def _stream_words(seed: int, n_words: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    raw = rng.choice(ALPHABET, size=(n_words * STREAM_ROWS, LANES, 4))
+    return np.ascontiguousarray(raw).view("<i4").reshape(n_words * STREAM_ROWS, LANES)
+
+
+@pytest.mark.parametrize("pattern,plan", FAMILIES, ids=FAMILY_IDS)
+def test_tables_identical(pattern, plan):
+    a, b = _tables(pattern)
+    assert (a.mode, a.k) == (b.mode, b.k) == plan
+    for f in ("m", "k", "mode", "thresholds", "acc_bit", "start", "n_rows", "n_states"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert a.tab.dtype == b.tab.dtype == np.int32 and np.array_equal(a.tab, b.tab)
+    assert np.array_equal(a.flat, b.flat)
+
+
+@pytest.mark.parametrize("pattern,plan", FAMILIES, ids=FAMILY_IDS)
+def test_byte_index_is_the_kernels_per_byte_index(pattern, plan):
+    """byte_index reproduces what the TPU kernel derives per byte: the
+    threshold sum (run), run*2 + parity (runp), the packed class row
+    (cls)."""
+    a, b = _tables(pattern)
+    byte = np.arange(256)
+    if a.mode.startswith("cls"):
+        pk = a.tab[-1].astype(np.int64)[byte & 127]
+        want = (pk >> ((byte >> 7) << 3)) & 0xFF
+    else:
+        want = np.zeros(256, dtype=np.int64)
+        for t in a.thresholds:
+            want += byte >= t
+        if a.mode.startswith("runp"):
+            want = want * 2 + (byte & 1)
+    assert np.array_equal(b.byte_index, want)
+    assert b.byte_index.max() < b.m
+
+
+WALK_FAMILIES = [FAMILIES[i] for i in (0, 1, 3, 4, 5, 6, 7, 8)]
+
+
+@pytest.mark.parametrize("entries", ["start", "random"])
+@pytest.mark.parametrize(
+    "pattern,plan", WALK_FAMILIES, ids=[f"{p.decode()}-{m}{k}" for p, (m, k) in WALK_FAMILIES]
+)
+def test_plain_walk_matches_reference_kernel(pattern, plan, entries):
+    """N_STREAMS * 32 bytes (8 word steps), start or random entries:
+    the plain walk's (bm, exits) == the reference kernel in interpret
+    mode == its numpy oracle."""
+    a, b = _tables(pattern)
+    w2d = _stream_words(len(pattern) + (entries == "random"), 8)
+    rng = np.random.default_rng(7)
+    if entries == "start":
+        ent = np.full((STREAM_ROWS, LANES), a.start, np.int32)
+    else:
+        ent = rng.integers(0, a.n_states, (STREAM_ROWS, LANES), dtype=np.int32)
+    bm_k, ex_k = ref.stride_dfa_scan(
+        jnp.asarray(w2d), jnp.asarray(a.tab), jnp.asarray(ent),
+        a.thresholds, a.m, a.k, mode=a.mode, interpret=True,
+    )
+    bm_np, ex_np = ref.np_stride_scan(w2d, a, ent)
+    bm, ex = port.stride_dfa_scan(torch.from_numpy(w2d), b, torch.from_numpy(ent))
+    assert bm.dtype == ex.dtype == torch.int32
+    assert bm.shape == (8 * STREAM_ROWS // 16, LANES) and ex.shape == (STREAM_ROWS, LANES)
+    assert np.array_equal(bm.numpy(), np.asarray(bm_k))
+    assert np.array_equal(ex.numpy(), np.asarray(ex_k))
+    assert np.array_equal(bm.numpy(), bm_np) and np.array_equal(ex.numpy(), ex_np)
+
+
+@pytest.mark.parametrize("pattern,plan", FAMILIES, ids=FAMILY_IDS)
+def test_plain_walk_matches_oracle_on_binary(pattern, plan):
+    """Every plan family against the numpy oracle on arbitrary bytes
+    (bytes >= 0x80 included) with random entries, 16 word steps."""
+    a, b = _tables(pattern)
+    rng = np.random.default_rng(len(pattern))
+    raw = rng.integers(0, 256, (16 * STREAM_ROWS, LANES, 4), dtype=np.uint8)
+    w2d = raw.view("<i4").reshape(16 * STREAM_ROWS, LANES)
+    ent = rng.integers(0, a.n_states, (STREAM_ROWS, LANES), dtype=np.int32)
+    bm_np, ex_np = ref.np_stride_scan(w2d, a, ent)
+    bm, ex = port.stride_dfa_scan(torch.from_numpy(w2d), b, torch.from_numpy(ent))
+    assert np.array_equal(bm.numpy(), bm_np) and np.array_equal(ex.numpy(), ex_np)
+
+
+def _scanners(pattern, buf_size):
+    rc, pc = ref_compile([pattern]), compile_multi([pattern])
+    rs = ref.StrideDfaScanner(rc.dfa, rc.max_len, buf_size, interpret=True)
+    ps = port.StrideDfaScanner(pc.dfa, pc.max_len, buf_size)
+    return rs, ps
+
+
+@pytest.mark.parametrize("buf_size", [N_STREAMS * 32, 2 << 20, 32 << 20, 36 << 20, 1 << 20])
+@pytest.mark.parametrize("pattern", [rb"[0-9]{5}", rb"[A-Z]{6}[0-9]{6}", rb"a[0-9]*b",
+                                     rb".{0,2}[a-z ]{11}", rb"[0-9]{100}"])
+def test_scanner_geometry_identical(pattern, buf_size):
+    rs, ps = _scanners(pattern, buf_size)
+    for f in ("stride", "window_mode", "win_wb", "probe_back", "probe_fwd"):
+        assert getattr(rs, f) == getattr(ps, f), f
+
+
+def test_prep_t_and_windows_identical():
+    rs, ps = _scanners(rb"[0-9]{5}", 2 << 20)
+    rng = np.random.default_rng(3)
+    buf = rng.integers(0, 256, size=(2 << 20) - 777, dtype=np.uint8)  # short: zero tail
+    want = rs.prep_t(buf)
+    got = ps.prep_t(buf)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+    out = np.empty((ps.s_w, N_STREAMS), np.int32)
+    assert np.array_equal(ps.prep_t(buf, out=out), want)
+    assert np.array_equal(out.reshape(want.shape), want)
+    # the window slices: the reference builds them inside run_t
+    import jax
+
+    wb, s_w = rs.win_wb, rs.stride // 4
+    w2d = jnp.asarray(want)
+    w1 = w2d[(s_w - wb) * STREAM_ROWS :]
+    head = w2d[: wb * STREAM_ROWS].reshape(wb, N_STREAMS)
+    w2 = jax.numpy.concatenate([head[:, 1:], jnp.zeros((wb, 1), w2d.dtype)], axis=1)
+    ref_win = np.concatenate([np.asarray(w1), np.asarray(w2).reshape(wb * STREAM_ROWS, LANES)])
+    assert np.array_equal(ps.windows_t(torch.from_numpy(want)).numpy(), ref_win)
+
+
+def _ref_run(rs, buf):
+    bm, n, conv = rs.traceable_run.run_t(jnp.asarray(rs.prep_t(buf)))
+    return np.asarray(bm), int(n), bool(conv)
+
+
+def _port_run(ps, buf):
+    bm, n, conv = ps.run_t(torch.from_numpy(ps.prep_t(buf)))
+    return bm.numpy(), int(n), bool(conv)
+
+
+def _compare_scanners(pattern, buf, buf_size):
+    rs, ps = _scanners(pattern, buf_size)
+    want, got = _ref_run(rs, buf), _port_run(ps, buf)
+    assert np.array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    nb = buf_size // 512
+    flags = ps.flags_np(got[0], nb)
+    assert np.array_equal(flags, rs.flags_np(want[0], nb))
+    return ps, got, flags
+
+
+def test_window_mode_identical():
+    """Bounded pattern: main walk + boundary-window pass; a match across
+    a stream boundary and one across the buffer's last boundary."""
+    buf_size = N_STREAMS * 32
+    buf = np.full(buf_size, ord("x"), dtype=np.uint8)
+    for pos in (62, 4000, 100_001, buf_size - 3):
+        buf[pos : pos + 5] = np.frombuffer(b"12345"[: buf_size - pos], dtype=np.uint8)
+    ps, (bm, n, conv), flags = _compare_scanners(rb"[0-9]{5}", buf, buf_size)
+    assert ps.window_mode and n == 1 and conv
+    assert bm.shape[0] == (ps.s_w + 2 * ps.win_wb) * STREAM_ROWS // 16
+    assert flags[0] == 1 and flags[4000 // 512] == 1
+
+
+def test_threading_fixpoint_identical():
+    """Unbounded pattern: runs crossing stream boundaries, one longer
+    than several strides; walks run and the bitmap equal the
+    reference's while_loop."""
+    buf_size = N_STREAMS * 32
+    buf = np.full(buf_size, ord(" "), dtype=np.uint8)
+    for start, end in ((50, 77), (1000, 1100), (9000, 9600), (buf_size - 40, buf_size - 1)):
+        buf[start] = ord("a")
+        buf[start + 1 : end] = ord("7")
+        buf[end] = ord("b")
+    ps, (bm, n, conv), flags = _compare_scanners(rb"a[0-9]*b", buf, buf_size)
+    assert not ps.window_mode and conv and n >= 2
+    assert flags[77 // 512] == 1 and flags[9600 // 512] == 1
+    assert flags.sum() < buf_size // 512
+
+
+def test_threading_round_cap_identical(monkeypatch):
+    """MAX_ROUNDS reached without convergence: an all-ones bitmap, every
+    block flagged, on both sides."""
+    monkeypatch.setattr(ref, "MAX_ROUNDS", 2)
+    monkeypatch.setattr(port, "MAX_ROUNDS", 2)
+    buf_size = N_STREAMS * 32
+    buf = np.full(buf_size, ord(" "), dtype=np.uint8)
+    buf[100] = ord("a")
+    buf[101:400] = ord("7")  # crosses several 32-byte strides
+    buf[400] = ord("b")
+    ps, (bm, n, conv), flags = _compare_scanners(rb"a[0-9]*b", buf, buf_size)
+    assert n == 2 and not conv and (bm == -1).all()
+    assert flags.sum() == buf_size // 512
+
+
+def test_fixpoint_plain_matches_per_walk_loop():
+    """stride_dfa_fixpoint on the CPU is the reference's loop written
+    out: walk from start, thread, walk again until the entries repeat."""
+    pc = compile_multi([rb"a[0-9]*b"])
+    t = port.StrideDfaTables(pc.dfa, port.stride_plan(pc.dfa))
+    w2d = torch.from_numpy(_stream_words(11, 8))
+    bm, n, conv = port.stride_dfa_fixpoint(w2d, t)
+    e = torch.full((STREAM_ROWS, LANES), t.start, dtype=torch.int32)
+    walks = 0
+    while True:
+        bm2, ex = port.stride_dfa_scan(w2d, t, e)
+        walks += 1
+        nxt = port.thread_entries(ex, t.start)
+        if torch.equal(nxt, e):
+            break
+        e = nxt
+    assert (n, conv) == (walks, True) and torch.equal(bm, bm2)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        lambda w, e: (w[:, :64], e),  # wrong lane count
+        lambda w, e: (w[:100], e),  # rows not a multiple of 128
+        lambda w, e: (w.to(torch.int64), e),  # wrong dtype
+        lambda w, e: (w, e[:64]),  # wrong entries shape
+    ],
+)
+def test_wrappers_reject_bad_geometry(bad):
+    pc = compile_multi([rb"[0-9]{5}"])
+    t = port.StrideDfaTables(pc.dfa, port.stride_plan(pc.dfa))
+    w = torch.zeros((8 * STREAM_ROWS, LANES), dtype=torch.int32)
+    e = torch.zeros((STREAM_ROWS, LANES), dtype=torch.int32)
+    w2, e2 = bad(w, e)
+    with pytest.raises(ValueError):
+        port.stride_dfa_scan(w2, t, e2)
+
+
+# -- DeviceScanner routing: modes, member types and flags ------------------
+
+ROUTES = [
+    (rb"[A-Z]{6}[0-9]{6}", "class_seq", "_StrideSeqMember"),
+    (rb"[0-9]{5}", "class_seq", "_StrideSeqMember"),
+    (rb"\t[0-9]+\t", "class_seq", "ClassSeqScanner"),
+    (rb"[0-9]{12,}", "class_seq", "ClassSeqScanner"),
+    (rb"n[a-z]+e", "class_seq", "ClassSeqScanner"),
+    (rb"[0-9]{1500}", "class_seq", "ClassSeqScanner"),
+    (rb".{0,2}(?:[0-9a-zA-Z]{4})+", "gdfa", "StrideDfaScanner"),
+    (rb".{0,2}[a-z ]{11}", "gdfa", "StrideDfaScanner"),
+    (rb".{0,2}[a-z ]{11,}", "gdfa", "StrideDfaScanner"),
+    (rb"linus", "literal", "CoreWordScanner"),
+]
+
+
+@pytest.mark.parametrize("pattern,mode,member", ROUTES, ids=[r[0].decode() for r in ROUTES])
+def test_device_scanner_routes_like_reference(pattern, mode, member):
+    from grab_tpu.scan_pipeline import DeviceScanner as RefScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    r = RefScanner(ref_compile([pattern]), buf_size=2 << 20, pallas_interpret=True)
+    p = DeviceScanner(compile_multi([pattern]), buf_size=2 << 20, device="cpu")
+    assert r.mode == p.mode == mode
+    got = type(p.members[0]).__name__
+    want = type(r._gdfa).__name__ if r.mode == "gdfa" else type(r._cw_list[0]).__name__
+    assert got == want == member
+    if mode == "gdfa":
+        assert r._gdfa.window_mode == p._gdfa.window_mode
+
+
+def test_device_scanner_gdfa_flags_match_reference():
+    """gdfa, threading: the port's resolve == the reference DeviceScanner
+    (Pallas interpret mode) on one 2 MiB packer buffer of the
+    punctuation corpus of tests/test_exact_unbounded_device.py."""
+    from grab_tpu.scan_pipeline import DeviceScanner as RefScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    pat = rb".{0,2}(?:[0-9a-zA-Z]{4})+"
+    rng = np.random.default_rng(5)
+    buf = rng.choice(np.frombuffer(b" -_=+()\n", dtype=np.uint8), size=(2 << 20) + 4096)
+    buf[(2 << 20):] = 0
+    for pos, span in ((5000, 8), (131030, 300), (524288 - 10, 5000), (900001, 4)):
+        buf[pos : pos + span] = np.frombuffer((b"a1B2" * (span // 4 + 1))[:span], np.uint8)
+    r = RefScanner(ref_compile([pat]), buf_size=2 << 20, pallas_interpret=True)
+    p = DeviceScanner(compile_multi([pat]), buf_size=2 << 20, device="cpu")
+    want = r.resolve(r.submit(buf))
+    got = p.resolve(p.submit(buf))
+    assert got.dtype == want.dtype and np.array_equal(got, want) and got.sum() > 0
+
+
+@pytest.mark.parametrize(
+    "pattern,buf_size,item",
+    [
+        (rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}", 2 << 20, "ROADMAP A6"),
+        (rb".{0,2}[a-z ]{11,}", 512 << 10, "ROADMAP A6"),
+        (rb".{0,2}[0-9]{11}", 2 << 20, "ROADMAP A7"),
+    ],
+)
+def test_plan_refusal_names_item(pattern, buf_size, item):
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, NotPortedError
+
+    with pytest.raises(NotPortedError, match=item):
+        DeviceScanner(compile_multi([pattern]), buf_size=buf_size, device="cpu")
