@@ -28,6 +28,17 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          threading fixpoint (runs across stream boundaries, one longer
          than a stride; the same number of walks) and the round-cap
          fallback;
+       - B3 alphabet runs: coarse runs of 1, 2, 4 and 8 words and fine
+         runs of 1, 2 and 4 bytes, ranges with byte 0 (the pad rows are
+         members) and with bytes >= 0x80, runs planted across row,
+         32-row group and buffer-end boundaries;
+       - B5 XOR filter: 5, 40, 100 and 1000 literals of 7-11 bytes
+         (remainder groups of arity 1 and 3 beside up to 10 full groups),
+         needles at every phase, and a buffer of NUL words;
+       - B6 fused ensemble: 100 long literals + 1 sequence, 60 short +
+         40 long literals + 3 sequences, and one bucket + 3 sequences;
+       - the last-resort DFA walk (plain PyTorch on both devices) on
+         the card against itself on the CPU at 2 MiB;
   4. the main paths, each command through ``cli.main`` on the card with
      every launch counter set to 0 just before it and read just after;
      stdout must equal the port's host-only scan (device="none") byte
@@ -44,14 +55,25 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          .{0,2}(?:[0-9a-zA-Z]{4})+``) over a punctuation tree with runs
          across stream boundaries, one over 4 KiB, and one file over
          32 MiB, which is replayed in full;
+       - alpha (``.{0,2}[0-9]{11}``; a backreference pattern with no
+         automaton; a fine-mode plan), the last-resort walk (an
+         automaton without a stride plan; a stride-eligible one in a
+         512 KiB buffer), and the literal ensemble: the 100-literal +
+         10-regex batch (fused, and split with GRAB_TPU_NO_FUSED=1),
+         100 literals + 10 bounded sequence patterns (fused + the
+         stride member on two uploads, and with GRAB_TPU_SEQDFA=0 the
+         sequences inside the fused kernel; a 4 MiB buffer over a 7 MB
+         tree here, since the host-only scan runs 10 regex VMs, and the
+         32 MiB buffer in the miss scan), ``-S -H`` with 100 literals,
+         and 20 short literals;
      the host-only scans of the new routes (a Python regex VM, ~1 MB/s)
      run beside the card's work in subprocesses, each on a slice of the
      tree in walk order, and their outputs are joined in that order;
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
-     bound; then a miss or near-miss scan per route over the full-size
-     trees: end-to-end rate, device idle share and the profiler's
-     kernel times;
+     bound; the last-resort walk per 32 MiB buffer; then a miss or
+     near-miss scan per route over the full-size trees: end-to-end
+     rate, device idle share and the profiler's kernel times;
   6. the card's name and power limit, a ``{"kernels": [...]}`` line and,
      last, ``{"ok": true, "device": {...}}``.
 
@@ -168,75 +190,73 @@ def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(torch, np, cw, rng, sm_count, sm_clock_mhz):
-    """Kernel vs plain at 32 MiB geometry, bit for bit; then times."""
+def word_kernel_case(torch, label, bufs, kernel, plain, ops, rate, extra):
+    """One word kernel on the card against its plain version, bit for
+    bit, on every buffer of ``bufs`` ({kind: host int32 [ROWS + 8,
+    128]}); then its time, the plain version's, a device copy's and the
+    bound, on the text buffer. kernel(w) → (total, packed, bm);
+    plain(w) → bm; ops: int32 operations the test needs on the text
+    buffer (a number, or a function of the device buffer)."""
+    from grab_tpu_torch.ops import corewords as cw
+
+    dev = torch.device("cuda")
+    dev_bufs = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
+    for dname, w in dev_bufs.items():
+        check(w.is_cuda, f"{dname} buffer is not on the card")
+        total, packed, bm = kernel(w)
+        torch.cuda.synchronize()
+        bm_ref = plain(w)
+        total_ref, packed_ref = cw.packed_block_flags(bm_ref)
+        torch.cuda.synchronize()
+        check(
+            torch.equal(bm, bm_ref) and torch.equal(packed, packed_ref)
+            and torch.equal(total, total_ref),
+            f"{label}: kernel != plain on {dname} data "
+            f"(total {int(total.item())} vs {int(total_ref.item())})",
+        )
+        check(int(total.item()) > 0, f"{label}: planted hits not flagged on {dname}")
+    first = next(iter(dev_bufs.values()))
+    ring = [first] + [first.clone() for _ in range(3)]
+    ms = time_cuda(torch, lambda i: kernel(ring[i % 4]), 40)
+    plain_ms = time_cuda(torch, lambda i: cw.packed_block_flags(plain(ring[i % 4])), 3, warmup=1)
+    dst = torch.empty_like(ring[0])
+    copy_ms = time_cuda(torch, lambda i: dst.copy_(ring[i % 4]), 40)
+    in_bytes = ring[0].numel() * 4
+    out_bytes = (ROWS // 32) * 128 * 4 + (ROWS // 32) * 4 + 4
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    n_ops = ops(ring[0]) if callable(ops) else ops
+    ops_ms = n_ops / rate * 1e3
+    res = dict(extra, max_abs_err=0, ms=ms, plain_ms=plain_ms, copy_ms=copy_ms,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+               bytes=in_bytes + out_bytes, int32_ops=n_ops)
+    log(f"{label}: kernel == plain, bit for bit, on {'/'.join(dev_bufs)}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, d2d copy {copy_ms:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, int32 ops {ops_ms:.4f})")
+    return res
+
+
+def phase_kernels(torch, np, cw, rng, rate):
+    """B1 against its plain version at 32 MiB geometry, bit for bit."""
     sets = dict(LITERAL_SETS)
     sets["k16-mixed"] = k16_literals(rng)
-    dev = torch.device("cuda")
-    int32_ops_per_s = sm_count * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
     results = []
     for name, lits in sets.items():
         t = cw.CoreWordTests(lits)
-        bufs = kernel_buffers(np, rng, lits)
-        dev_bufs = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
-        max_err = 0
-        for dname, w in dev_bufs.items():
-            check(w.is_cuda, f"{dname} buffer is not on the card")
-            total, packed, bm = cw.core_word_flags(w, t.tab, t.k, t.n_words, t.masked)
-            torch.cuda.synchronize()
-            bm_ref = cw.core_word_bitmap_torch(w, t.tab, t.k, t.n_words, t.masked)
-            total_ref, packed_ref = cw.packed_block_flags(bm_ref)
-            torch.cuda.synchronize()
-            err = max(
-                int((bm.long() - bm_ref.long()).abs().max()),
-                int((packed.long() - packed_ref.long()).abs().max()),
-                abs(int(total.item()) - int(total_ref.item())),
-            )
-            check(
-                torch.equal(bm, bm_ref) and torch.equal(packed, packed_ref)
-                and torch.equal(total, total_ref),
-                f"kernel != plain for {name} on {dname} data "
-                f"(total {int(total.item())} vs {int(total_ref.item())})",
-            )
-            check(int(total.item()) > 0, f"planted {name} needles not flagged on {dname}")
-            max_err = max(max_err, err)
-        log(f"kernel == plain, bit for bit: {name} (K={t.k}, W={t.n_words}, "
-            f"masked={t.masked}) on text/binary/zeros")
-
-        # times: rotate over 4 distinct 32 MiB buffers (128 MiB > L2)
-        ring = [dev_bufs["text"]] + [dev_bufs["text"].clone() for _ in range(3)]
-        ms = time_cuda(
-            torch, lambda i: cw.core_word_flags(ring[i % 4], t.tab, t.k, t.n_words, t.masked), 40)
-        plain_ms = time_cuda(
-            torch,
-            lambda i: cw.packed_block_flags(cw.core_word_bitmap_torch(
-                ring[i % 4], t.tab, t.k, t.n_words, t.masked)),
-            5, warmup=1)
-        dst = torch.empty_like(ring[0])
-        copy_ms = time_cuda(torch, lambda i: dst.copy_(ring[i % 4]), 40)
-        in_bytes = ring[0].numel() * 4
-        out_bytes = (ROWS // 32) * 128 * 4 + (ROWS // 32) * 4 + 4
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         # least integer work: per (phase, literal) pair and word, one
         # 3-input logic op (LOP3: (x ^ v) & m, or OR-ing in the second
         # word's term) per tested word plus one compare-accumulate per
         # word when masked (2W), one compare per word when not (W)
         per_pair = 2 * t.n_words if t.masked else t.n_words
-        ops = 4 * t.k * per_pair * ROWS * 128
-        ops_ms = ops / int32_ops_per_s * 1e3
-        results.append({
-            "set": name, "literals": len(lits), "k": t.k, "n_words": t.n_words,
-            "masked": t.masked, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "copy_ms": copy_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-            "bytes": in_bytes + out_bytes, "int32_ops": ops,
-        })
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, d2d copy "
-            f"{copy_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-            f"(bytes {bytes_ms:.4f}, int32 ops {ops_ms:.4f})")
-        del ring, dev_bufs, dst
+        results.append(word_kernel_case(
+            torch, f"core words {name} (K={t.k}, W={t.n_words}, masked={t.masked})",
+            kernel_buffers(np, rng, lits),
+            lambda w: cw.core_word_flags(w, t.tab, t.k, t.n_words, t.masked),
+            lambda w: cw.core_word_bitmap_torch(w, t.tab, t.k, t.n_words, t.masked),
+            4 * t.k * per_pair * ROWS * 128, rate,
+            {"set": name, "literals": len(lits), "k": t.k, "n_words": t.n_words,
+             "masked": t.masked}))
     return results
 
 
@@ -369,21 +389,26 @@ def phase_main_path(torch, np, rng, tmp):
 
 def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
     """A miss (or near-miss) scan over the tree: end-to-end rate, then a
-    profiled run for the device's busy and idle share."""
+    profiled run for the device's busy and idle share. ``counter``: the
+    kernel (or kernels, space-separated) that the scan must launch. The
+    Engine's construction (pattern compile, tables) is timed apart: it
+    is part of every wall."""
     from grab_tpu_torch import cli
     from grab_tpu_torch.engine import Engine
 
-    engines = []
+    engines, build_s = [], []
 
     def keep(pats, cfg):
+        t0 = time.perf_counter()
         e = Engine(pats, cfg)
+        build_s.append(time.perf_counter() - t0)
         engines.append(e)
         return e
 
     argv = argv or ["-r", "zQx##missing##", tree]
     reset_counters()
     rc, warm_out, _ = run_cli(cli, argv, factory=keep)  # warm: page cache, build
-    check(rc == 0 and read_counters()[counter] > 0,
+    check(rc == 0 and all(read_counters()[c] > 0 for c in counter.split()),
           f"{argv[:-1]}: rc {rc}, the {counter} kernel was never launched")
     walls = []
     for _ in range(3):
@@ -395,8 +420,8 @@ def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
     st = engines[-1].stats
     nbytes = st.bytes_scanned
     gbps = [nbytes / w / 1e9 for w in walls]
-    log(f"scan {argv[:-1]}: {nbytes} bytes, {len(out)} B of output, walls {walls} s → "
-        f"{gbps} GB/s; batches={st.device_batches}, stats: {st.summary()}")
+    log(f"scan {argv[:-1]}: {nbytes} bytes, {len(out)} B of output, walls {walls} s (Engine "
+        f"built in {build_s[1:4]} s of them) → {gbps} GB/s; batches={st.device_batches}, stats: {st.summary()}")
 
     host = host_breakdown(np, tree, st.device_batches) if breakdown else None
 
@@ -437,6 +462,7 @@ def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
     return {
         "argv": [a if a != tree else os.path.basename(tree) for a in argv],
         "stdout_bytes": len(out), "bytes": nbytes, "walls_s": walls, "gbps": gbps,
+        "engine_build_s": build_s[1:4],
         "device_batches": st.device_batches, "stats": st.summary(),
         "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": idle, "device_ms_by_name": by_name, "host": host,
@@ -554,58 +580,18 @@ def b4_ops(torch, w, seqs) -> int:
     return ops
 
 
-def phase_classseq(torch, np, rng, sm_count, sm_clock_mhz):
+def phase_classseq(torch, np, rng, rate):
     """B4 against its plain version at 32 MiB geometry, bit for bit."""
     from grab_tpu_torch.ops import classseq as cs
-    from grab_tpu_torch.ops import corewords as cw
 
-    dev = torch.device("cuda")
-    int32_ops_per_s = sm_count * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
     results = []
     for name, seqs in seq_sets(np, rng).items():
         needles = [seq_needle(s, rng) for s in seqs]
-        bufs = kernel_buffers(np, rng, needles)
-        dev_bufs = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
-        for dname, w in dev_bufs.items():
-            check(w.is_cuda, f"{dname} buffer is not on the card")
-            total, packed, bm = cs.classseq_flags(w, seqs)
-            torch.cuda.synchronize()
-            bm_ref = cs.classseq_bitmap_torch(w, seqs)
-            total_ref, packed_ref = cw.packed_block_flags(bm_ref)
-            torch.cuda.synchronize()
-            check(
-                torch.equal(bm, bm_ref) and torch.equal(packed, packed_ref)
-                and torch.equal(total, total_ref),
-                f"class-seq kernel != plain for {name} on {dname} data "
-                f"(total {int(total.item())} vs {int(total_ref.item())})",
-            )
-            check(int(total.item()) > 0, f"planted {name} sequences not flagged on {dname}")
-        log(f"class-seq kernel == plain, bit for bit: {name} ({len(seqs)} sequences) "
-            f"on text/binary/zeros")
-        ring = [dev_bufs["text"]] + [dev_bufs["text"].clone() for _ in range(3)]
-        ms = time_cuda(torch, lambda i: cs.classseq_flags(ring[i % 4], seqs), 40)
-        plain_ms = time_cuda(
-            torch, lambda i: cw.packed_block_flags(cs.classseq_bitmap_torch(ring[i % 4], seqs)),
-            3, warmup=1)
-        dst = torch.empty_like(ring[0])
-        copy_ms = time_cuda(torch, lambda i: dst.copy_(ring[i % 4]), 40)
-        in_bytes = ring[0].numel() * 4
-        out_bytes = (ROWS // 32) * 128 * 4 + (ROWS // 32) * 4 + 4
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops = b4_ops(torch, ring[0], seqs)
-        ops_ms = ops / int32_ops_per_s * 1e3
-        results.append({
-            "set": name, "seqs": len(seqs), "max_abs_err": 0, "ms": ms,
-            "plain_ms": plain_ms, "copy_ms": copy_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-            "bytes": in_bytes + out_bytes, "int32_ops": ops,
-        })
-        log(f"{name}: class-seq kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, d2d copy "
-            f"{copy_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-            f"int32 ops {ops_ms:.4f}: {ops} ops on the text buffer)")
-        del ring, dev_bufs, dst
+        results.append(word_kernel_case(
+            torch, f"class sequences {name} ({len(seqs)} sequences)",
+            kernel_buffers(np, rng, needles),
+            lambda w: cs.classseq_flags(w, seqs), lambda w: cs.classseq_bitmap_torch(w, seqs),
+            lambda w: b4_ops(torch, w, seqs), rate, {"set": name, "seqs": len(seqs)}))
     return results
 
 
@@ -771,10 +757,234 @@ def phase_stride_scanner(torch, np, rng):
     return out
 
 
+# -- B3, B5, B6 and the last-resort walk ---------------------------------------
+
+
+def run_buffers(np, rng, ranges):
+    """Host word buffers (text of non-member bytes, binary, zeros) with
+    runs of member bytes of many lengths at every alignment, across row,
+    32-row group and buffer-end boundaries."""
+    pool = np.concatenate([np.arange(lo, hi + 1) for lo, hi in ranges]).astype(np.uint8)
+    inside = np.zeros(256, bool)
+    inside[pool] = True
+    outside = np.flatnonzero(~inside).astype(np.uint8)
+    n = BUF
+    bases = {
+        "text": rng.choice(outside if outside.size else pool, size=n),
+        "binary": rng.integers(0, 256, size=n, dtype=np.uint8),
+        "zeros": np.zeros(n, dtype=np.uint8),
+    }
+    plants = []
+    for i, ln in enumerate((1, 2, 3, 4, 5, 7, 8, 11, 12, 16, 19, 20, 31, 32, 35, 36, 41, 64)):
+        plants += [(1000 * (i + 1) + i % 4, ln), (512 * (50 + i) - ln // 2, ln),
+                   (32 * 512 * (3 + i) - 1 - ln // 3, ln)]
+    plants += [(n - 64, 64), (n - 3, 3), (n - 36, 33), (0, 40)]
+    out = {}
+    for name, base in bases.items():
+        buf = base.copy()
+        for pos, ln in plants:
+            buf[pos : pos + ln] = rng.choice(pool, size=ln)
+        words = np.zeros((ROWS + 8, 128), dtype="<i4")
+        words[:ROWS] = buf.view("<i4").reshape(ROWS, 128)
+        out[name] = words
+    return out
+
+
+ALPHA_CASES = [  # (label, ranges, [(mode, units), ...])
+    ("digits", ((48, 57),), [("coarse", 2), ("coarse", 1), ("coarse", 4), ("coarse", 8),
+                             ("fine", 1), ("fine", 2), ("fine", 4)]),
+    ("NUL + digits", ((0, 0), (48, 57)), [("coarse", 8), ("fine", 4)]),
+    ("bytes >= 0x80", ((0x80, 0xBF), (0xF0, 0xFF)), [("coarse", 4), ("fine", 2)]),
+    ("8 ranges", tuple((16 * i + 1, 16 * i + 6) for i in range(8)),
+     [("coarse", 2), ("fine", 4)]),
+]
+
+
+def phase_alpharun(torch, np, rng, rate):
+    """B3 against its plain version at 32 MiB geometry, bit for bit."""
+    from grab_tpu_torch.ops import alpharun as ar
+
+    results = []
+    for name, ranges, plans in ALPHA_CASES:
+        bufs = run_buffers(np, rng, ranges)
+        for mode, units in plans:
+            # per word: 6 ops per range for the 4 bytes (two SWAR compares
+            # of an add and a logic op each, AND-NOT, OR) and the 7-bit
+            # mask, on one word (coarse) or two (fine); then the run: a
+            # compare, a funnel shift, AND, compare (coarse), or two
+            # shift-ANDs per halving, mask, compare (fine); 2 to fold the
+            # hit into the bitmap word
+            per_word = (6 * len(ranges) + 1) * (1 if mode == "coarse" or units == 1 else 2)
+            per_word += 4 if mode == "coarse" else 2 * (units.bit_length() - 1) + 2
+            results.append(word_kernel_case(
+                torch, f"alpha-run {name} {mode} {units}", bufs,
+                lambda w: ar.alpharun_flags(w, ranges, mode, units),
+                lambda w: ar.alpharun_bitmap_torch(w, ranges, mode, units),
+                (per_word + 2) * ROWS * 128, rate,
+                {"set": name, "ranges": len(ranges), "mode": mode, "units": units}))
+    return results
+
+
+def long_literals(np, rng, k: int):
+    return [bytes(rng.integers(33, 127, size=int(rng.integers(7, 12)), dtype=np.uint8))
+            for _ in range(k)]
+
+
+def xor_ops(tests) -> int:
+    """Per word and bank a multiply, a shift and an XOR (the shared read
+    is not counted); per group a compare and an OR; 2 for the bitmap."""
+    consts = tests.consts()
+    return (3 * sum(len(c) for c in consts) + 2 * len(consts) + 2) * ROWS * 128
+
+
+def phase_xor(torch, np, rng, rate):
+    """B5 against its plain version at 32 MiB geometry, bit for bit."""
+    from grab_tpu_torch.ops import xorfilter as xf
+
+    dev = torch.device("cuda")
+    results = []
+    for k in (100, 5, 40, 1000):
+        lits = long_literals(np, rng, k)
+        tests = xf.XorWordTests(lits)
+        bufs = kernel_buffers(np, rng, lits)
+        for kind in bufs:  # needles at every phase, all through the set
+            flat = bufs[kind][:ROWS].reshape(-1).view(np.uint8)
+            for i, lit in enumerate(lits[:64]):
+                pos = 700_000 + 37 * i
+                flat[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
+        arities = [len(c) for c in tests.consts()]
+        results.append(word_kernel_case(
+            torch, f"XOR filter {k} literals (banks {arities})", bufs,
+            lambda w: xf.xor_word_flags(w, tests),
+            lambda w: xf.xor_bitmap_torch(w, tests.tables(), tests.consts()),
+            xor_ops(tests), rate,
+            {"set": f"{k} literals", "literals": k, "keys": tests.n_keys, "banks": sum(arities),
+             "groups": len(arities)}))
+        nul = torch.zeros((ROWS + 8, 128), dtype=torch.int32, device=dev)
+        total, packed, bm = xf.xor_word_flags(nul, tests)
+        check(int(total.item()) == 0 and not bool(bm.any()),
+              f"XOR filter {k} literals: NUL words pass as members")
+    return results
+
+
+def fused_sets(np, rng):
+    """{name: (literals, compiled sequences)}."""
+    from grab_tpu_torch.ops.classseq import compile_sequences
+
+    lower = sum(1 << b for b in range(97, 123))
+    one = compile_sequences([(DIGIT, DIGIT, DIGIT, lower, lower)])
+    three = compile_sequences([(DIGIT,) * 5, (HIGH, DIGIT, HIGH), (DIGIT,) * 8])
+    shorts = [bytes(rng.integers(97, 123, size=int(rng.integers(3, 7)), dtype=np.uint8))
+              for _ in range(60)]
+    return {
+        "100 long + 1 seq": (long_literals(np, rng, 100), one),
+        "60 short + 40 long + 3 seqs": (shorts + long_literals(np, rng, 40), three),
+        "1 bucket + 3 seqs": ([b"linus", b"lmnus", b"lnnus"], three),
+    }
+
+
+def phase_fused(torch, np, rng, rate):
+    """B6 against its plain version at 32 MiB geometry, bit for bit."""
+    from grab_tpu_torch.ops import fused as fu
+
+    results = []
+    for name, (lits, seqs) in fused_sets(np, rng).items():
+        sc = fu.FusedEnsembleScanner(lits, seqs)
+        plants = lits[:10] + [seq_needle(s, rng) for s in seqs]
+        bufs = kernel_buffers(np, rng, plants)
+
+        def ops(w, sc=sc):
+            # the members' counts, as for B1, B5 and B4 alone
+            n = sum(4 * t.k * (2 * t.n_words if t.masked else t.n_words)
+                    for t in sc.cw_tests) * ROWS * 128
+            n += xor_ops(sc.xor) if sc.xor else 0
+            return n + (b4_ops(torch, w, sc.seqs) if sc.seqs else 0)
+
+        results.append(word_kernel_case(
+            torch, f"fused {name} (buckets {sc.cw_shapes}, banks "
+            f"{[len(c) for c in sc.xor_groups]}, {len(seqs)} sequences)", bufs,
+            lambda w: fu.fused_word_flags(w, sc), lambda w: fu.fused_bitmap_torch(w, sc),
+            ops, rate,
+            {"set": name, "buckets": len(sc.cw_tests), "banks": sum(len(c) for c in sc.xor_groups),
+             "seqs": len(seqs), "program_bytes": int(sc.program().nbytes)}))
+    return results
+
+
+NO_PLAN = rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"  # 1001 states, no stride plan
+WALK_HIT = b"a1gAN" + b"b2hBO" * 199
+
+
+def phase_walk(torch, np, rng):
+    """The last-resort DFA walk (plain PyTorch): on the card against
+    itself on the CPU at 2 MiB, then its time per 32 MiB buffer."""
+    from grab_tpu_torch.ops import dfa_scan as ds
+    from grab_tpu_torch.ops.stridedfa import stride_plan
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    dev = torch.device("cuda")
+    dfa = compile_multi([NO_PLAN]).dfa
+    check(stride_plan(dfa) is None, "the walk's pattern has a stride plan")
+    out = {}
+    for label, size in (("2 MiB", 2 << 20), ("32 MiB", BUF)):
+        m = ds.DfaWalkMember(dfa, size, 512, 32768, 0x1000)
+        buf = rng.integers(32, 127, size=size, dtype=np.uint8)
+        for pos in (5000, 32768 * 3 - 400, size - len(WALK_HIT) - 9):
+            buf[pos : pos + len(WALK_HIT)] = np.frombuffer(WALK_HIT, np.uint8)
+        d = torch.from_numpy(buf).to(dev)
+        if size == 2 << 20:
+            m.packed(d)  # warm-up: the tables' upload, the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, packed = m.packed(d)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        res = {"n_streams": m.n_streams, "steps": 32768 + 0x1000, "card_s": card_s,
+               "flagged_blocks": int(total.item())}
+        check(int(total.item()) >= 3, f"walk at {label}: planted matches not flagged")
+        if size == 2 << 20:
+            t0 = time.perf_counter()
+            total_c, packed_c = m.packed(torch.from_numpy(buf))
+            res["cpu_s"] = time.perf_counter() - t0
+            check(torch.equal(total.cpu(), total_c) and torch.equal(packed.cpu(), packed_c),
+                  "walk on the card != walk on the CPU at 2 MiB")
+            flags = m.flags_np(packed.cpu().numpy(), size // 512)
+            check(flags[5000 // 512 + 1] == 1 or flags[(5000 + len(WALK_HIT)) // 512] == 1,
+                  "walk missed the planted match's end")
+        out[label] = res
+        log(f"last-resort walk, {label} ({m.n_streams} streams x {res['steps']} steps): "
+            f"{card_s:.3f} s on the card" + (f", {res['cpu_s']:.3f} s on the CPU, equal"
+                                             if "cpu_s" in res else ""))
+    return out
+
+
 # -- the class_seq and gdfa main paths ---------------------------------------
 
 SEQ_PLANTS = [b"QWERTY123456", b"ABCDEF000001", b"\t4711\t", b"\t9\t", b"\t123456789\t",
-              b"hello world", b"abc def ghij"]
+              b"hello world", b"abc def ghij",
+              # the alpha routes: 11 digits; a doubled 12-hex-digit and 6-digit group
+              b"x91827364550x", b"0a1b2c3d4e5f0a1b2c3d4e5f", b"<123456123456>"]
+
+# the literal ensemble's batches: 100 literals of 7-11 lowercase bytes
+# with 10 regexes (the reference's multi-pattern configuration), and with
+# 10 bounded sequence patterns (served by the union stride member)
+BATCH_REGEXES = [
+    rb"foo[a-z]{2,6}bar", rb"[0-9]{3}-[0-9]{4}", rb"qu+x", rb"colou?r",
+    rb"abc(def|ghi)jkl", rb"w[xyz]{3}w", rb"nee+dle", rb"[A-Z]{5}99",
+    rb"zz(?:a|b|c)zz", rb"end\.x",
+]
+BATCH_SEQS = [("[0-9]{%d}[a-z]{%d}" % (3 + i % 3, 1 + i % 2)).encode() for i in range(10)]
+BATCH_PLANTS = [b"fooqqbar", b"555-1234", b"quuux", b"colour", b"abcdefjkl", b"wxyzw",
+                b"neeedle", b"QWERT99", b"zzbzz", b"end.x", b"12345ab", b"999xy", b"4567q",
+                b"lit07", b"lit19"]
+# bytes that start or continue no literal factor and no sequence of the
+# batches: in text made of them only planted hits flag a block
+SOUP = b"ghijkmprstv .,;:_\n"
+
+
+def batch_literals(np):
+    rng = np.random.default_rng(12)
+    return [bytes(rng.integers(97, 123, size=int(rng.integers(7, 12)), dtype=np.uint8))
+            for _ in range(100)]
 
 
 def write_files(np, root: str, base, sizes, plant):
@@ -839,7 +1049,60 @@ def write_route_trees(np, rng, tmp):
     gbulk = os.path.join(tmp, "gbulk")
     bsizes = [int(x) for x in np.exp(rng.uniform(np.log(64 << 10), np.log(24 << 20), size=90))]
     b_bytes = write_files(np, gbulk, punct, bsizes, lambda data, i: None)
-    return {"mtree": (mtree, m_bytes), "gtree": (gtree, g_bytes), "gbulk": (gbulk, b_bytes)}
+
+    # ctree: ~36 MB in 2 batches of bytes that trigger nothing of the
+    # literal batches, their hits planted at random places and around
+    # 512 B multiples; one 3 MiB file lies across the batch boundary
+    soup = rng.choice(np.frombuffer(SOUP, np.uint8), size=64 << 20)
+    lits = batch_literals(np)
+    cplants = BATCH_PLANTS + lits[::9]
+
+    def plant_batch(data, i):
+        n = data.size
+        spots = rng.integers(0, max(1, n - 16), size=2 + n // (256 << 10)).tolist()
+        spots += [k * 512 - 3 for k in range(1, n // 512, 97)]
+        for j, p_ in enumerate(spots):
+            s_ = cplants[(i + j) % len(cplants)]
+            p_ = min(int(p_), n - len(s_))
+            data[p_ : p_ + len(s_)] = np.frombuffer(s_, np.uint8)
+
+    ctree = os.path.join(tmp, "ctree")
+    csizes = [int(x) for x in np.exp(rng.uniform(np.log(4 << 10), np.log(2 << 20), size=100))]
+    csizes = csizes[:92] + [3 << 20] + csizes[92:]
+    c_bytes = write_files(np, ctree, soup, csizes, plant_batch)
+    with open(os.path.join(tmp, "batch4.txt"), "wb") as f:
+        f.write(b"\n".join(lits + BATCH_REGEXES) + b"\n")
+    with open(os.path.join(tmp, "batchseq.txt"), "wb") as f:
+        f.write(b"\n".join(lits + BATCH_SEQS) + b"\n")
+    with open(os.path.join(tmp, "lits100.txt"), "wb") as f:
+        f.write(b"\n".join(lits) + b"\n")
+    with open(os.path.join(tmp, "lits20.txt"), "wb") as f:
+        f.write(b"\n".join(b"lit%02d" % i for i in range(20)) + b"\n")
+
+    # stree: ~7 MB of the same soup in files under 1 MiB for the batch
+    # with 10 sequence patterns, whose host-only scan runs 10 ungated
+    # regex VMs (~0.1 MB/s); scanned with a 4 MiB buffer (2 batches), at
+    # 32 MiB in the miss scan
+    stree = os.path.join(tmp, "stree")
+    ssizes = [int(x) for x in np.exp(rng.uniform(np.log(4 << 10), np.log(1 << 20), size=30))]
+    s_bytes = write_files(np, stree, soup, ssizes + [1 << 20], plant_batch)
+
+    # wtree: ~3 MB of text for the last-resort walk (seconds per buffer)
+    def plant_walk(data, i):
+        n = data.size
+        for pos in (n // 3, n - 1200):
+            if n > 3000:
+                data[pos : pos + len(WALK_HIT)] = np.frombuffer(WALK_HIT, np.uint8)
+        data[100 : 100 + 11] = np.frombuffer(b"hello world", np.uint8)
+        if n > 600_000:  # across the 512 KiB buffer's batch boundary
+            at = (512 << 10) - 0x1000 - 5
+            data[at : at + 11] = np.frombuffer(b"hello world", np.uint8)
+
+    wtree = os.path.join(tmp, "wtree")
+    wsizes = [int(x) for x in np.exp(rng.uniform(np.log(8 << 10), np.log(400 << 10), size=22))]
+    w_bytes = write_files(np, wtree, text, wsizes + [700 << 10], plant_walk)
+    return {"mtree": (mtree, m_bytes), "gtree": (gtree, g_bytes), "gbulk": (gbulk, b_bytes),
+            "ctree": (ctree, c_bytes), "stree": (stree, s_bytes), "wtree": (wtree, w_bytes)}
 
 
 class HostRefs:
@@ -909,26 +1172,66 @@ class HostRefs:
             p.wait()
 
 
+def route(key, flags, pattern, tree, mode, members, counters, env=None, cfg=None, ref=None):
+    """One CLI command and what it must reach: DeviceScanner mode, the
+    members' type names in order, the kernels whose counters must move.
+    pattern "@name" is the pattern file tmp/name; env is set around the
+    run; cfg overrides EngineConfig fields; ref names the route whose
+    host-only scan is this one's too (same command, another device plan)."""
+    return dict(key=key, flags=flags, pattern=pattern, tree=tree, mode=mode, members=members,
+                counters=counters, env=env or {}, cfg=cfg or {}, ref=ref or key)
+
+
+FUSED = "FusedEnsembleScanner"
 ROUTE_COMMANDS = [
-    # (key, argv flags, pattern, tree, mode, member type, counter)
-    ("seq-stride", ["-r"], "[A-Z]{6}[0-9]{6}", "mtree", "class_seq", "_StrideSeqMember",
-     "stride"),
-    ("seq-word", ["-r", "-O"], "\t[0-9]+\t", "mtree", "class_seq", "ClassSeqScanner",
-     "classseq"),
-    ("gdfa-window", ["-r"], ".{0,2}[a-z ]{11}", "mtree", "gdfa", "StrideDfaScanner",
-     "stride"),
-    ("gdfa-thread", ["-E", "-r"], ".{0,2}(?:[0-9a-zA-Z]{4})+", "gtree", "gdfa",
-     "StrideDfaScanner", "stride"),
+    route("seq-stride", ["-r"], "[A-Z]{6}[0-9]{6}", "mtree", "class_seq", ["_StrideSeqMember"],
+          ["stride"]),
+    route("seq-word", ["-r", "-O"], "\t[0-9]+\t", "mtree", "class_seq", ["ClassSeqScanner"],
+          ["classseq"]),
+    route("gdfa-window", ["-r"], ".{0,2}[a-z ]{11}", "mtree", "gdfa", ["StrideDfaScanner"],
+          ["stride"]),
+    route("gdfa-thread", ["-E", "-r"], ".{0,2}(?:[0-9a-zA-Z]{4})+", "gtree", "gdfa",
+          ["StrideDfaScanner"], ["stride"]),
+    route("alpha-coarse", ["-r", "-O"], ".{0,2}[0-9]{11}", "mtree", "alpha", ["AlphaRunScanner"],
+          ["alpharun"]),
+    # backreferences: no automaton, the class run is the only device form
+    # (-2: the PCRE1 capture quirk would print nothing)
+    route("alpha-backref", ["-2", "-r", "-O"], ".{0,2}([0-9a-f]{12})\\1", "mtree", "alpha",
+          ["AlphaRunScanner"], ["alpharun"]),
+    route("alpha-fine", ["-2", "-r"], ".{0,2}([0-9]{6})\\1", "mtree", "alpha",
+          ["AlphaRunScanner"], ["alpharun"]),
+    route("walk-noplan", ["-r", "-l", "-O"], NO_PLAN.decode(), "wtree", "dfa", ["DfaWalkMember"],
+          []),
+    route("walk-smallbuf", ["-r"], ".{0,2}[a-z ]{11}", "wtree", "dfa", ["DfaWalkMember"], [],
+          cfg={"scan_buf_size": 512 << 10}),
+    route("batch4-fused", ["-r", "-H", "-O"], "@batch4.txt", "ctree", "literal", [FUSED],
+          ["fused"]),
+    route("batch4-split", ["-r", "-H", "-O"], "@batch4.txt", "ctree", "literal",
+          ["XorWordScanner"] + ["CoreWordScanner"] * 3 + ["ClassSeqScanner"],
+          ["xor", "corewords", "classseq"], env={"GRAB_TPU_NO_FUSED": "1"}, ref="batch4-fused"),
+    route("batchseq-stride", ["-r", "-H", "-O"], "@batchseq.txt", "stree", "literal",
+          [FUSED, "_StrideSeqMember"], ["fused", "stride"], cfg={"scan_buf_size": 4 << 20}),
+    route("batchseq-inside", ["-r", "-H", "-O"], "@batchseq.txt", "stree", "literal", [FUSED],
+          ["fused"], env={"GRAB_TPU_SEQDFA": "0"}, cfg={"scan_buf_size": 4 << 20},
+          ref="batchseq-stride"),
+    # 100 long literals alone are one member: the split path's filter
+    route("lits100", ["-r", "-S", "-H"], "@lits100.txt", "ctree", "literal",
+          ["XorWordScanner"], ["xor"]),
+    route("lits20", ["-r", "-H", "-O"], "@lits20.txt", "ctree", "literal", [FUSED], ["fused"]),
 ]
 
 
 def counters():
+    from grab_tpu_torch.ops import alpharun as ar
     from grab_tpu_torch.ops import classseq as cs
     from grab_tpu_torch.ops import corewords as cw
+    from grab_tpu_torch.ops import fused as fu
     from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.ops import xorfilter as xf
 
     return {"corewords": cw.core_word_flags, "classseq": cs.classseq_flags,
-            "stride": sd.stride_dfa_scan}
+            "stride": sd.stride_dfa_scan, "alpharun": ar.alpharun_flags,
+            "xor": xf.xor_word_flags, "fused": fu.fused_word_flags}
 
 
 def reset_counters():
@@ -940,47 +1243,60 @@ def read_counters():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def phase_routes(torch, np, trees, refs):
-    """The class_seq and gdfa commands on the card, each against its
-    host-only scan; route and kernel counter checked per command."""
+def route_pattern(r, tmp: str) -> str:
+    return os.path.join(tmp, r["pattern"][1:]) if r["pattern"].startswith("@") else r["pattern"]
+
+
+def phase_routes(torch, np, trees, refs, tmp):
+    """Every route's command on the card against its host-only scan;
+    mode, members and kernel counters checked per command."""
     from grab_tpu_torch import cli
     from grab_tpu_torch.engine import Engine
 
     runs = []
-    for key, flags, pattern, tree, mode, member, counter in ROUTE_COMMANDS:
-        root = trees[tree][0]
+    for r in ROUTE_COMMANDS:
+        root = trees[r["tree"]][0]
         engines = []
 
-        def keep(pats, cfg):
-            e = Engine(pats, cfg)
+        def keep(pats, cfg, r=r):
+            e = Engine(pats, dataclasses.replace(cfg, **r["cfg"]))
             engines.append(e)
             return e
 
-        argv = flags + [pattern, root]
-        reset_counters()
-        t0 = time.time()
-        rc, out, err = run_cli(cli, argv, factory=keep)
-        dev_s = time.time() - t0
-        launches = read_counters()
-        shown = " ".join(flags + [repr(pattern), tree])
+        argv = r["flags"] + [route_pattern(r, tmp), root]
+        shown = " ".join([f"{k}={v}" for k, v in r["env"].items()] + r["flags"]
+                         + [repr(r["pattern"]), r["tree"]]
+                         + [f"{k}={v}" for k, v in r["cfg"].items()])
+        os.environ.update(r["env"])
+        try:
+            reset_counters()
+            t0 = time.time()
+            rc, out, err = run_cli(cli, argv, factory=keep)
+            dev_s = time.time() - t0
+            launches = read_counters()
+        finally:
+            for k in r["env"]:
+                os.environ.pop(k, None)
         check(rc == 0, f"{shown}: rc {rc}: {err}")
         sc = engines[-1]._get_scanner()
-        got_member = type(sc.members[0]).__name__
-        check(sc.mode == mode and got_member == member,
-              f"{shown}: route {sc.mode}/{got_member}, expected {mode}/{member}")
-        check(launches[counter] > 0, f"{shown}: the {counter} kernel was never launched")
+        got = [type(m).__name__ for m in sc.members]
+        check(sc.device.type == "cuda", f"{shown}: the scanner is not on the card")
+        check(sc.mode == r["mode"] and got == r["members"],
+              f"{shown}: route {sc.mode}/{got}, expected {r['mode']}/{r['members']}")
+        for counter in r["counters"]:
+            check(launches[counter] > 0, f"{shown}: the {counter} kernel was never launched")
         t0 = time.time()
-        want = refs.result(key)
+        want = refs.result(r["ref"])
         wait_s = time.time() - t0
         check(out == want, f"{shown}: device stdout ({len(out)} B) != host stdout "
                            f"({len(want)} B)")
         check(len(out) > 0, f"{shown}: no matches printed for the planted hits")
         st = engines[-1].stats
-        runs.append({"argv": shown, "mode": sc.mode, "member": got_member,
+        runs.append({"key": r["key"], "argv": shown, "mode": sc.mode, "members": got,
                      "stdout_bytes": len(out), "launches": launches,
                      "device_s": dev_s, "host_wait_s": wait_s,
                      "batches": st.device_batches, "stats": st.summary()})
-        log(f"stdout == host scan: {shown} → {sc.mode}/{got_member} ({len(out)} B, "
+        log(f"stdout == host scan: {shown} → {sc.mode}/{got} ({len(out)} B, "
             f"launches {launches}, device run {dev_s:.2f}s, waited {wait_s:.2f}s for the "
             f"host scan)")
     return runs
@@ -1021,7 +1337,8 @@ def main() -> int:
     from grab_tpu_torch.ops import corewords as cw
 
     t0 = time.time()
-    libs = _build.build_cuda(["corewords", "classseq", "stridedfa"])
+    libs = _build.build_cuda(
+        ["corewords", "classseq", "stridedfa", "alpharun", "xorfilter", "fused"])
     t_cuda = time.time() - t0
     t0 = time.time()
     native_ok = native.available()
@@ -1039,21 +1356,26 @@ def main() -> int:
             # in subprocesses beside everything below
             t0 = time.time()
             trees = write_route_trees(np, rng, tmp)
-            for key, flags, pattern, tree, *_ in sorted(
-                    ROUTE_COMMANDS, key=lambda c: c[3] != "gtree"):
-                refs.start(key, flags, pattern, trees[tree][0])
+            for r in sorted(ROUTE_COMMANDS, key=lambda r: r["tree"] != "gtree"):
+                if r["ref"] == r["key"]:
+                    refs.start(r["key"], r["flags"], route_pattern(r, tmp), trees[r["tree"]][0])
             log(f"route trees written in {time.time() - t0:.1f}s: "
                 f"{ {k: v[1] for k, v in trees.items()} } bytes")
 
             # 3 + 5a. kernels vs plain at full geometry, then their times
-            kres = phase_kernels(torch, np, cw, rng, sms, sm_clock)
-            cres = phase_classseq(torch, np, rng, sms, sm_clock)
+            rate = sms * INT32_LANES_PER_SM * sm_clock * 1e6  # int32 operations per second
+            kres = phase_kernels(torch, np, cw, rng, rate)
+            cres = phase_classseq(torch, np, rng, rate)
             sres = phase_stride(torch, np, rng, sms, sm_clock)
             scres = phase_stride_scanner(torch, np, rng)
+            ares = phase_alpharun(torch, np, rng, rate)
+            xres = phase_xor(torch, np, rng, rate)
+            fres = phase_fused(torch, np, rng, rate)
+            wres = phase_walk(torch, np, rng)
 
             # 4. the main paths, then 5b. their miss / near-miss scans
             tree, tree_bytes, n_files, runs, launches = phase_main_path(torch, np, rng, tmp)
-            route_runs = phase_routes(torch, np, trees, refs)
+            route_runs = phase_routes(torch, np, trees, refs, tmp)
             refs.close()
             e2e = phase_e2e(torch, np, tree)
             gbulk = trees["gbulk"][0]
@@ -1063,6 +1385,15 @@ def main() -> int:
                 phase_e2e(torch, np, tree, ["-r", ".{0,2}[a-z ]{11}", tree], "stride", False),
                 phase_e2e(torch, np, gbulk, ["-E", "-r", ".{0,2}(?:[0-9a-zA-Z]{4})+", gbulk],
                           "stride", False),
+                phase_e2e(torch, np, tree, ["-r", ".{0,2}[0-9]{11}", tree], "alpharun", False),
+                # the batches' digit and capital sequences flag nearly every
+                # block of printable text, so their miss scan runs over the
+                # punctuation tree
+                phase_e2e(torch, np, gbulk,
+                          ["-r", "-H", os.path.join(tmp, "batch4.txt"), gbulk], "fused", False),
+                phase_e2e(torch, np, gbulk,
+                          ["-r", "-H", os.path.join(tmp, "batchseq.txt"), gbulk],
+                          "fused stride", False),
             ]
     finally:
         refs.close()
@@ -1091,13 +1422,28 @@ def main() -> int:
             "grab_tpu/ops/pallas_stridedfa.py:521",
             sum(r["launches"]["stride"] for r in route_runs), sres, sres[0],
             ("pattern", "mode", "k") + common + ("chain_ms",)),
+        row("alpharun_word_bitmap", "grab_tpu_torch/csrc/alpharun.cu",
+            "grab_tpu/ops/pallas_alpharun.py:212",
+            sum(r["launches"]["alpharun"] for r in route_runs), ares, ares[0],
+            ("set", "mode", "units") + common),
+        row("xor_word_bitmap", "grab_tpu_torch/csrc/xorfilter.cu",
+            "grab_tpu/ops/pallas_xorfilter.py:256",
+            sum(r["launches"]["xor"] for r in route_runs), xres, xres[0],
+            ("set", "banks", "groups") + common),
+        row("fused_word_bitmap", "grab_tpu_torch/csrc/fused.cu",
+            "grab_tpu/ops/pallas_fused.py:182",
+            sum(r["launches"]["fused"] for r in route_runs), fres, fres[0],
+            ("set", "buckets", "banks", "seqs") + common),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: never launched on a main path")
     detail = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "sm_count": sms, "max_sm_clock_mhz": sm_clock,
         "build_s": {"nvcc": t_cuda, "ingest": t_ingest}, "native_ingest": native_ok,
         "buf_size": BUF, "kernel_sets": kres, "classseq_sets": cres, "stride_plans": sres,
-        "stride_scanner": scres, "main_path": runs, "route_paths": route_runs,
+        "stride_scanner": scres, "alpharun_sets": ares, "xor_sets": xres, "fused_sets": fres,
+        "dfa_walk": wres, "main_path": runs, "route_paths": route_runs,
         "tree": {"bytes": tree_bytes, "files": n_files},
         "route_trees": {k: v[1] for k, v in trees.items()},
         "miss_scan": e2e, "route_scans": route_e2e,

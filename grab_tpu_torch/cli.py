@@ -5,8 +5,7 @@ Stdout is byte-identical to the JAX package's ``grab_tpu.cli``. The
 scan runs on the CUDA card; GRAB_TPU_TORCH_DEVICE=cpu runs the
 kernels' plain PyTorch versions on the CPU instead. What the port does
 not serve yet is refused with one stderr line naming its ROADMAP item
-and exit 255: device plans outside the literal, class-sequence and
-strided-DFA tiers, -n N with N > 1, multi-host (--hosts /
+and exit 255: -n N with N > 1, multi-host (--hosts /
 JAX_NUM_PROCESSES) and --via.
 
 Flag surface mirrors the reference exactly

@@ -53,53 +53,17 @@
 
 #include <cuda_runtime.h>
 
+#include "classseq_test.cuh"
 #include "word_epilogue.cuh"
 
 namespace {
 
 using grab_word::kGroupRows;
+using grab_word::SeqDesc;
 constexpr int kLanes = grab_word::kWordLanes;
-constexpr int kMaxSeqs = 32;
-constexpr int kMaxClasses = 8;  // PREFIX_CAP atoms per sequence
-constexpr int kMaxRanges = 8;   // mask_to_ranges' cap per class
-
-// Byte layout shared with grab_tpu_torch/ops/classseq.py seq_descriptor
-// (no padding: two int32 then uint8 arrays). Range t of class (s, j) of
-// sequence s is [lo, hi].
-struct SeqDesc {
-  int32_t n_seqs;
-  int32_t span;  // longest sequence, <= 8
-  uint8_t len[kMaxSeqs];
-  uint8_t n_ranges[kMaxSeqs][kMaxClasses];
-  uint8_t lo[kMaxSeqs][kMaxClasses][kMaxRanges];
-  uint8_t hi[kMaxSeqs][kMaxClasses][kMaxRanges];
-};
-static_assert(sizeof(SeqDesc) == 8 + 32 + 256 + 2048 + 2048, "layout");
+constexpr int kRows = grab_word::kSeqRows;
 
 __constant__ SeqDesc c_desc;
-
-constexpr uint32_t kH = 0x80808080u;   // each byte's high bit
-constexpr uint32_t kL7 = 0x7f7f7f7fu;
-constexpr uint32_t kL1 = 0x01010101u;
-constexpr int kRows = 8;  // rows tested together per descriptor read
-
-// "byte >= b" for the 4 bytes of x at once, into each byte's high bit
-// (other bits are junk; xl = x & kL7; 0 <= b <= 256). For b <= 128,
-// t = xl + (128 - b) per byte reaches 128 iff a byte below 128 is >= b,
-// and a byte of 128 or more always is: t | x. For b > 128 only a byte of
-// 128 or more can be, iff t = xl + (256 - b) reaches 128: t & x. keep
-// (~0 or 0) selects the form without a branch. No carry crosses a
-// byte: a 7-bit byte plus at most 128 stays below 256.
-struct Bound {
-  uint32_t add, keep;
-  __device__ __forceinline__ explicit Bound(int b)
-      : add(static_cast<uint32_t>(b <= 128 ? 128 - b : 256 - b) * kL1),
-        keep(b <= 128 ? ~0u : 0u) {}
-  __device__ __forceinline__ uint32_t ge(uint32_t x, uint32_t xl) const {
-    const uint32_t t = xl + add;
-    return (t & (x | keep)) | (x & keep);
-  }
-};
 
 __global__ void __launch_bounds__(kLanes)
     classseq_kernel(const uint32_t* __restrict__ words,
@@ -109,7 +73,6 @@ __global__ void __launch_bounds__(kLanes)
   const int c = threadIdx.x;
   const uint32_t* col =
       words + static_cast<size_t>(g) * kGroupRows * kLanes + c;
-  const int n_seqs = c_desc.n_seqs;
   const bool two = c_desc.span + 3 > 4;  // window reaches word w+1
   const bool three = c_desc.span + 3 > 8;  // ... and word w+2
   uint32_t bits = 0;
@@ -122,43 +85,8 @@ __global__ void __launch_bounds__(kLanes)
       w1[i] = two ? __ldg(p + 1) : 0u;
       w2[i] = three ? __ldg(p + 2) : 0u;
     }
-    uint32_t hits = 0;  // bit i: row r0 + i hit
-    for (int s = 0; s < n_seqs && hits != (1u << kRows) - 1; ++s) {
-      const int len = c_desc.len[s];
-      // alive[i]: the phases of row r0 + i whose AND chain still holds
-      uint32_t alive[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) alive[i] = (hits >> i) & 1u ? 0u : kH;
-      uint32_t any = kH;
-#pragma unroll
-      for (int j = 0; j < kMaxClasses; ++j) {
-        if (j >= len || !any) break;
-        // byte p of x is window byte p + j: class j at the 4 phases
-        uint32_t x[kRows], xl[kRows], m[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const uint32_t lo = j < 4 ? w0[i] : w1[i];
-          const uint32_t hi = j < 4 ? w1[i] : w2[i];
-          x[i] = __funnelshift_r(lo, hi, 8 * (j & 3));
-          xl[i] = x[i] & kL7;
-          m[i] = 0;
-        }
-        const int n = c_desc.n_ranges[s][j];
-        for (int t = 0; t < n; ++t) {
-          const Bound from(c_desc.lo[s][j][t]), to(c_desc.hi[s][j][t] + 1);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) m[i] |= from.ge(x[i], xl[i]) & ~to.ge(x[i], xl[i]);
-        }
-        any = 0;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          alive[i] &= m[i];
-          any |= alive[i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) hits |= static_cast<uint32_t>(alive[i] != 0) << i;
-    }
+    // bit i: row r0 + i hit
+    const uint32_t hits = grab_word::classseq_hits(c_desc, w0, w1, w2, 0u);
     bits |= hits << r0;
   }
   grab_word::row_bitmap_epilogue(bits, g, c, bm, packed, total);
@@ -177,12 +105,7 @@ int gt_classseq_scan(const void* words, const void* desc, int64_t desc_bytes,
                      int64_t groups, void* bm, void* packed, void* total,
                      int device, void* stream) {
   if (groups <= 0 || groups > 0x7fffffff ||
-      desc_bytes != static_cast<int64_t>(sizeof(SeqDesc))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const SeqDesc* d = static_cast<const SeqDesc*>(desc);
-  if (d->n_seqs < 1 || d->n_seqs > kMaxSeqs || d->span < 1 ||
-      d->span > kMaxClasses) {
+      !grab_word::seq_desc_valid(desc, desc_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);

@@ -33,7 +33,8 @@
 // cross-thread sum. The lane-OR is one __reduce_or_sync per warp and
 // four shared words; the count is one atomicAdd of an exact integer per
 // flagged group, so the result is deterministic (word_epilogue.cuh,
-// shared with classseq.cu). The (val, mask) table,
+// shared by all the word kernels). The (phase, literal) compare itself is
+// coreword_test.cuh, shared with fused.cu. The (val, mask) table,
 // at most 2*4*16*2 int32 = 1 KiB, travels by value as a kernel argument;
 // every thread reads the same entry at a compile-time index, which the
 // constant bank broadcasts. K, W and masked are template parameters (20
@@ -47,6 +48,7 @@
 
 #include <cuda_runtime.h>
 
+#include "coreword_test.cuh"
 #include "word_epilogue.cuh"
 
 namespace {
@@ -82,15 +84,9 @@ __global__ void __launch_bounds__(kLanes)
       for (int li = 0; li < K; ++li) {
         const int iv = (p * K + li) * W;  // value of word 0
         const int im = 4 * K * W + iv;    // mask of word 0
-        if (MASKED) {
-          uint32_t acc = (x0 ^ tab.v[iv]) & tab.v[im];
-          if (W > 1) acc |= (x1 ^ tab.v[iv + 1]) & tab.v[im + 1];
-          hit |= acc == 0u;
-        } else {
-          bool eq = x0 == tab.v[iv];
-          if (W > 1) eq = eq && x1 == tab.v[iv + 1];
-          hit |= eq;
-        }
+        hit |= grab_word::core_pair_hit<W, MASKED>(
+            x0, x1, tab.v[iv], tab.v[im], W > 1 ? tab.v[iv + 1] : 0u,
+            W > 1 ? tab.v[im + 1] : 0u);
       }
     }
     bits |= hit << r;

@@ -1,6 +1,7 @@
-// Shared epilogue of the word-bitmap kernels (corewords.cu, classseq.cu).
+// Shared epilogue of the word-bitmap kernels (corewords.cu, classseq.cu,
+// alpharun.cu, xorfilter.cu, fused.cu).
 //
-// Both kernels run one block of kWordLanes threads per 32-row group of
+// Each kernel runs one block of kWordLanes threads per 32-row group of
 // the int32 word buffer [rows + 8, 128]: thread c walks the group's 32
 // rows at lane c and builds its bitmap word in a register (bit r = hit
 // at word (32g + r, c)). This epilogue writes, bit for bit as the TPU
@@ -25,7 +26,9 @@ namespace grab_word {
 constexpr int kWordLanes = 128;  // words per row (one candidate block)
 constexpr int kGroupRows = 32;   // rows folded into one bitmap word
 
-// Must be called by all kWordLanes threads of the block.
+// Must be called by all kWordLanes threads of the block. A kernel that
+// calls it for several groups in a loop puts a __syncthreads() between
+// two calls (warp_or is reused).
 __device__ __forceinline__ void row_bitmap_epilogue(
     uint32_t bits, int g, int c, int32_t* __restrict__ bm,
     int32_t* __restrict__ packed, int32_t* __restrict__ total) {

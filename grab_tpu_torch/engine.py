@@ -5,8 +5,9 @@ the reference's, and its four device touch points are the port's
 (_note_host_fallback, _stride_serves, _get_scanner, _effective_shards).
 The scan runs on the CUDA card unless the caller asks for the CPU
 (``EngineConfig.device``, default from GRAB_TPU_TORCH_DEVICE, else
-"cuda"). A pattern whose device plan is not ported yet is refused when
-the Engine is built (scan_pipeline.NotPortedError).
+"cuda"). Every plan the reference's single-device scanner serves has a
+device mode here; several shards (-n N) are refused when the Engine is
+built (scan_pipeline.NotPortedError).
 
 Pipeline (the TPU restructuring of FileGrep::find,
 greppin src/grab.cc:131-239):
@@ -414,10 +415,9 @@ class Engine:
         self._check_port()
 
     def _check_port(self) -> None:
-        """Refuse, at construction, what the port cannot serve yet:
-        several shards, and device plans outside the literal, class_seq
-        and gdfa modes (building the DeviceScanner raises for those). A
-        missing CUDA card raises here too."""
+        """Refuse, at construction, what the port cannot serve yet
+        (several shards), and build the DeviceScanner, so a missing
+        CUDA card raises here too."""
         if self.cfg.device == "none":
             return
         resolve_device(self.cfg.device)

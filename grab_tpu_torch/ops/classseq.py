@@ -29,7 +29,9 @@ from grab_tpu_torch.ops.corewords import (
     LANES,
     PAD_ROWS,
     bitmap_rows_torch,
+    check_words,
     decode_packed_flags,
+    launch_args,
     packed_block_flags,
 )
 from grab_tpu_torch.regex.ast import mask_to_ranges
@@ -189,39 +191,19 @@ def classseq_flags(
     CUDA tensor: one launch of csrc/classseq.cu on the current stream
     (counted in ``classseq_flags.launches``); a refused launch raises.
     CPU tensor: the plain PyTorch version."""
-    if words2d.dtype != torch.int32 or words2d.dim() != 2:
-        raise ValueError(f"words2d must be 2-D int32, got {words2d.dtype} "
-                         f"{tuple(words2d.shape)}")
-    rows = words2d.shape[0] - PAD_ROWS
-    if words2d.shape[1] != LANES or rows <= 0 or rows % 32:
-        raise ValueError(f"words2d must be [32*g + {PAD_ROWS}, {LANES}], "
-                         f"got {tuple(words2d.shape)}")
+    rows = check_words(words2d)
     _check_seqs(seqs)
     if words2d.device.type == "cpu":
         bm = classseq_bitmap_torch(words2d, seqs)
         total, packed = packed_block_flags(bm)
         return total, packed, bm
-    if words2d.device.type != "cuda":
-        raise ValueError(f"unsupported device {words2d.device}")
-    if not words2d.is_contiguous():
-        raise ValueError("words2d must be contiguous")
-    fn = _kernel_lib()
     desc = _pinned_descriptor(seqs)
-    dev = words2d.device
-    groups = rows // 32
-    bm = torch.empty((groups, LANES), dtype=torch.int32, device=dev)
-    packed = torch.empty(groups, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    err = fn(
-        words2d.data_ptr(), desc.data_ptr(), desc.numel(), groups,
-        bm.data_ptr(), packed.data_ptr(), total.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    outs, tail = launch_args(rows, words2d.device)
+    err = _kernel_lib()(words2d.data_ptr(), desc.data_ptr(), desc.numel(), *tail)
     if err != 0:
         raise RuntimeError(f"class-sequence kernel launch failed: CUDA error {err}")
     classseq_flags.launches += 1
-    return total, packed, bm
+    return outs
 
 
 classseq_flags.launches = 0

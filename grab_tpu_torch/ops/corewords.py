@@ -224,6 +224,40 @@ def packed_block_flags(bm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return total, packed
 
 
+def check_words(words2d: torch.Tensor) -> int:
+    """Rows of a padded [rows + PAD_ROWS, 128] int32 word buffer on the
+    CPU or (contiguous) on a CUDA card, or ValueError."""
+    if words2d.dtype != torch.int32 or words2d.dim() != 2:
+        raise ValueError(f"words2d must be 2-D int32, got {words2d.dtype} "
+                         f"{tuple(words2d.shape)}")
+    rows = words2d.shape[0] - PAD_ROWS
+    if words2d.shape[1] != LANES or rows <= 0 or rows % 32:
+        raise ValueError(f"words2d must be [32*g + {PAD_ROWS}, {LANES}], "
+                         f"got {tuple(words2d.shape)}")
+    if words2d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {words2d.device}")
+    if words2d.device.type == "cuda" and not words2d.is_contiguous():
+        raise ValueError("words2d must be contiguous")
+    return rows
+
+
+def launch_args(rows: int, dev: torch.device):
+    """What every word kernel's C entry point ends with: the outputs it
+    fills (bm int32 [rows/32, 128], packed int32 [rows/32], total int32
+    [1], allocated here) and (groups, their pointers, the device index,
+    the current stream)."""
+    groups = rows // 32
+    bm = torch.empty((groups, LANES), dtype=torch.int32, device=dev)
+    packed = torch.empty(groups, dtype=torch.int32, device=dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    tail = (
+        groups, bm.data_ptr(), packed.data_ptr(), total.data_ptr(),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return (total, packed, bm), tail
+
+
 def _kernel_lib():
     from grab_tpu_torch import _build
 
@@ -255,13 +289,7 @@ def core_word_flags(
     CUDA tensor: one launch of csrc/corewords.cu on the current stream
     (counted in ``core_word_flags.launches``); a refused launch raises.
     CPU tensor: the plain PyTorch version."""
-    if words2d.dtype != torch.int32 or words2d.dim() != 2:
-        raise ValueError(f"words2d must be 2-D int32, got {words2d.dtype} "
-                         f"{tuple(words2d.shape)}")
-    rows = words2d.shape[0] - PAD_ROWS
-    if words2d.shape[1] != LANES or rows <= 0 or rows % 32:
-        raise ValueError(f"words2d must be [32*g + {PAD_ROWS}, {LANES}], "
-                         f"got {tuple(words2d.shape)}")
+    rows = check_words(words2d)
     tab = np.ascontiguousarray(tab, dtype=np.int32)
     if tab.shape != (2, 4, k, n_words) or k not in LIT_BUCKETS or n_words not in (1, 2):
         raise ValueError(f"table shape {tab.shape} does not match k={k}, "
@@ -270,26 +298,14 @@ def core_word_flags(
         bm = core_word_bitmap_torch(words2d, tab, k, n_words, masked)
         total, packed = packed_block_flags(bm)
         return total, packed, bm
-    if words2d.device.type != "cuda":
-        raise ValueError(f"unsupported device {words2d.device}")
-    if not words2d.is_contiguous():
-        raise ValueError("words2d must be contiguous")
-    fn = _kernel_lib()
-    dev = words2d.device
-    groups = rows // 32
-    bm = torch.empty((groups, LANES), dtype=torch.int32, device=dev)
-    packed = torch.empty(groups, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    err = fn(
-        words2d.data_ptr(), tab.ctypes.data, k, n_words, int(bool(masked)),
-        groups, bm.data_ptr(), packed.data_ptr(), total.data_ptr(),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+    outs, tail = launch_args(rows, words2d.device)
+    err = _kernel_lib()(
+        words2d.data_ptr(), tab.ctypes.data, k, n_words, int(bool(masked)), *tail
     )
     if err != 0:
         raise RuntimeError(f"core-word kernel launch failed: CUDA error {err}")
     core_word_flags.launches += 1
-    return total, packed, bm
+    return outs
 
 
 core_word_flags.launches = 0

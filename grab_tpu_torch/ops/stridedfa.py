@@ -491,6 +491,8 @@ class StrideDfaScanner:
     threading fixpoint (``run_t``), and the host decodes the bitmap into
     linear candidate block flags (``flags_np``)."""
 
+    wants_transposed = True  # DeviceScanner uploads prep_t's layout for it
+
     def __init__(self, dfa, max_len, buf_size: int):
         plan = stride_plan(dfa)
         assert plan is not None

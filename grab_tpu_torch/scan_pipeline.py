@@ -2,26 +2,33 @@
 generation.
 
 Files are packed into fixed-size scan buffers (ingest/packer.py) and
-each buffer is uploaded and scanned by a device kernel; only a count
-and the candidate flags' compact form come back to the host. This is
-the port of the JAX package's scan_pipeline.py. ``DeviceScanner``
-routes a compiled pattern set the way the reference does and serves
-three device modes:
+each buffer is uploaded and scanned by device kernels; only a count and
+the candidate flags' compact form come back to the host. This is the
+port of the JAX package's scan_pipeline.py. ``DeviceScanner`` routes a
+compiled pattern set the way the reference does; ``members`` lists the
+scanners that share one uploaded buffer, their totals are summed on the
+device and their decoded flags unioned on the host:
 
-  * literal: a covered literal set, one core-word scanner
-    (ops/corewords.py, kernel csrc/corewords.cu);
+  * literal: a covered literal set. The fused ensemble (ops/fused.py,
+    csrc/fused.cu: compare buckets, the XOR filter over 7+-byte
+    literals, class sequences, in one pass) beside the union strided-DFA
+    member for two or more class sequences; or, for a single member and
+    with GRAB_TPU_NO_FUSED=1, the split path: XOR filter
+    (ops/xorfilter.py), core-word buckets (ops/corewords.py), the
+    sequence member last;
   * class_seq: covered class sequences and no literals, served by the
     union strided-DFA member when the sequences' automaton is bounded
     and has a stride plan (``_StrideSeqMember``, csrc/stridedfa.cu),
-    else by the class-sequence kernel (ops/classseq.py,
-    csrc/classseq.cu);
-  * gdfa: uncovered patterns with an automaton of at most 2048 states
-    and a stride plan, including unbounded ``-E`` patterns (the
-    strided-DFA walk with its window pass or threading fixpoint,
-    ops/stridedfa.py).
+    else by the class-sequence kernel (ops/classseq.py);
+  * alpha: an uncovered pattern with an eligible mandatory class run
+    (ops/alpharun.py, csrc/alpharun.cu), taken before any automaton
+    walk and also when there is no device-sized automaton;
+  * gdfa: an uncovered automaton of at most 2048 states with a stride
+    plan, in a buffer of at least 1 MiB (the strided-DFA walk with its
+    window pass or threading fixpoint, ops/stridedfa.py);
+  * dfa: any other automaton of at most 2048 states, by the last-resort
+    multi-stream walk (ops/dfa_scan.py, plain PyTorch).
 
-Every other plan is refused with its tier and ROADMAP item
-(``NotPortedError``), never quietly replayed on the host.
 ``CorpusPipeline`` is the reference's, unchanged: its one-deep double
 buffering overlaps host packing of the next batch with the device's
 upload and scan of this one.
@@ -29,13 +36,17 @@ upload and scan of this one.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+import os
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from grab_tpu_torch.ops.alpharun import AlphaRunScanner, alpharun_eligible
 from grab_tpu_torch.ops.classseq import ClassSeqScanner, compile_sequences
 from grab_tpu_torch.ops.corewords import LANES, PAD_ROWS, CoreWordScanner
+from grab_tpu_torch.ops.dfa_scan import DfaWalkMember
+from grab_tpu_torch.ops.fused import FusedEnsembleScanner
 from grab_tpu_torch.ops.stridedfa import (
     HALO as STRIDE_HALO,
     N_STREAMS,
@@ -43,12 +54,14 @@ from grab_tpu_torch.ops.stridedfa import (
     StrideDfaScanner,
     stride_plan,
 )
+from grab_tpu_torch.ops.xorfilter import XorWordScanner
 
 CANDIDATE_BLOCK = 512
 HALO = 0x1000  # reference overlap (grab.cc:151)
 MAX_KERNEL_LITERALS = 16  # one compare bucket of the core-word kernel
 MAX_LONG_LITERALS = 4  # more 7+-byte literals go to the XOR filter
-MIN_STRIDE_BUF = 1 << 20  # smaller buffers take the reference's jnp walk
+MIN_STRIDE_BUF = 1 << 20  # smaller buffers take the last-resort walk
+MAX_DEVICE_STATES = 2048  # larger automata have no device form
 
 
 class NotPortedError(ValueError):
@@ -75,75 +88,39 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-def plan_refusal(cp, buf_size: int) -> Optional[str]:
-    """Why the device plan of compiled pattern ``cp`` at scan buffer
-    ``buf_size`` is outside the port, or None when a ported mode serves
-    it. Mirrors the reference routing (scan_pipeline.py
-    DeviceScanner.__init__ and _build_pallas): a covered literal plan
-    with at most 16 literals, at most 4 of them 7+ bytes long, and no
-    class sequences gives a fused ensemble of one member, which the
-    reference replaces by its split path's single CoreWordScanner; a
-    covered class-sequence plan is the class_seq mode; an uncovered
-    automaton of at most 2048 states whose alphabet-run plan is not
-    eligible is the gdfa mode when it has a stride plan and the buffer
-    is at least 1 MiB."""
-    if cp.covered and cp.literals:
-        if cp.class_seqs:
-            return (
-                "literal plan with class sequences needs the fused ensemble "
-                "and its class-seq member (ROADMAP A8, A9)"
-            )
-        if sum(len(l) >= 7 for l in cp.literals) > MAX_LONG_LITERALS:
-            return (
-                f"more than {MAX_LONG_LITERALS} literals of 7+ bytes need the "
-                "XOR-filter member of the fused ensemble (ROADMAP A9)"
-            )
-        if len(cp.literals) > MAX_KERNEL_LITERALS:
-            return (
-                f"more than {MAX_KERNEL_LITERALS} literals need the fused "
-                "ensemble (ROADMAP A9)"
-            )
+def plan_refusal(cp) -> Optional[str]:
+    """Why compiled pattern ``cp`` has no device scan, or None when a
+    mode serves it (the reference's DeviceScanner.__init__ chain)."""
+    if cp.covered and (cp.literals or cp.class_seqs):
         return None
-    if cp.covered and cp.class_seqs:
+    if cp.dfa is not None and cp.dfa.n_states <= MAX_DEVICE_STATES:
         return None
-    # uncovered: the reference scans a class-run plan with the
-    # alphabet-run kernel first, else walks the automaton
     if DeviceScanner._alpha_eligible(cp.alpha_plan):
-        return "class-run plan needs the alphabet-run tier (ROADMAP A7)"
-    if cp.dfa is not None and cp.dfa.n_states <= 2048:
-        if stride_plan(cp.dfa) is None:
-            return (
-                "automaton without a strided-DFA plan needs the last-resort "
-                "DFA walk (ROADMAP A6)"
-            )
-        if buf_size < MIN_STRIDE_BUF:
-            return (
-                f"a scan buffer under {MIN_STRIDE_BUF} bytes needs the "
-                "last-resort DFA walk (ROADMAP A6)"
-            )
         return None
     return "pattern has no device-scannable form"
 
 
 class _PinnedUploader:
-    """Host → device uploads through a ring of pinned staging buffers,
-    copied on a side stream so the copy is asynchronous to the host.
+    """Host → device uploads through a ring of pinned staging slots,
+    copied on a side stream so the copy is asynchronous to the host. A
+    slot holds one buffer per size in ``sizes`` (the linear words and,
+    beside a stride member, the transposed words).
 
-    Slot i's staging buffer is rewritten only after its previous copy
-    has completed (``_copied``), and its device buffer only after the
-    kernel that read it has run (``_consumed``), so a batch in flight is
-    never overwritten while CorpusPipeline packs the next one."""
+    Slot i's staging buffers are rewritten only after their previous
+    copy has completed (``_copied``), and its device buffers only after
+    the kernels that read them have run (``_consumed``), so a batch in
+    flight is never overwritten while CorpusPipeline packs the next one."""
 
     DEPTH = 2  # CorpusPipeline keeps at most two batches in flight
 
-    def __init__(self, nbytes: int, device: torch.device):
+    def __init__(self, sizes: Sequence[int], device: torch.device):
         self.device = device
         self._host = [
-            torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            [torch.empty(n, dtype=torch.uint8, pin_memory=True) for n in sizes]
             for _ in range(self.DEPTH)
         ]
         self._dev = [
-            torch.empty(nbytes, dtype=torch.uint8, device=device)
+            [torch.empty(n, dtype=torch.uint8, device=device) for n in sizes]
             for _ in range(self.DEPTH)
         ]
         self._copied: List[Optional[torch.cuda.Event]] = [None] * self.DEPTH
@@ -152,19 +129,20 @@ class _PinnedUploader:
         self._next = 0
 
     def run(self, fill, fn):
-        """``fill(staging)`` writes the batch into the free slot's pinned
-        uint8 numpy buffer; it is uploaded and ``fn(dev)`` launched on
-        the current stream after the copy."""
+        """``fill(stagings)`` writes the batch into the free slot's pinned
+        uint8 numpy buffers; they are uploaded and ``fn(devs)`` launched
+        on the current stream after the copies."""
         i = self._next
         self._next = (i + 1) % self.DEPTH
         if self._copied[i] is not None:
             self._copied[i].synchronize()
-        fill(self._host[i].numpy())
+        fill([h.numpy() for h in self._host[i]])
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
             if self._consumed[i] is not None:
                 self._stream.wait_event(self._consumed[i])
-            self._dev[i].copy_(self._host[i], non_blocking=True)
+            for d, h in zip(self._dev[i], self._host[i]):
+                d.copy_(h, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(self._stream)
         self._copied[i] = copied
@@ -182,7 +160,10 @@ class _StrideSeqMember:
     seq_dfa), window mode only. Its hits are exact union match ends, a
     tighter candidate set than prefix-sequence starts; the host replay
     is the same. It consumes the buffer born in the walk's stream-major
-    layout (``prep_t``), so no linear upload is made for it."""
+    layout (``prep_t``): a second upload beside the linear words when
+    word members share the batch, the only upload otherwise."""
+
+    wants_transposed = True
 
     def __init__(self, dfa, max_len, buf_size: int):
         self.sc = StrideDfaScanner(dfa, max_len, buf_size)
@@ -212,6 +193,7 @@ class DeviceScanner:
         compiled,
         buf_size: Optional[int] = None,
         block: int = CANDIDATE_BLOCK,
+        stream_seg: int = 32768,
         device: str = "cuda",
     ):
         self.device = resolve_device(device)
@@ -228,59 +210,143 @@ class DeviceScanner:
         self.buf_size = buf_size
         self.block = block
         cp = compiled
-        why = plan_refusal(cp, buf_size)
+        why = plan_refusal(cp)
         if why is not None:
-            raise NotPortedError(f"{why}: not ported to the GPU yet")
+            raise ValueError(why)
+        self._shorts_absorbed = False
         if cp.covered and cp.literals:
             self.mode = "literal"
-            member = CoreWordScanner(cp.literals)
+            self.members = self._literal_members(cp)
         elif cp.covered and cp.class_seqs:
             self.mode = "class_seq"
-            member = self._seq_scanner(cp)
-        else:
+            self.members = [self._seq_scanner(cp, standalone=True)]
+        elif self._alpha_eligible(cp.alpha_plan):
+            # fastest sound tier for a factor-less pattern, and the only
+            # device form without a device-sized automaton (backrefs,
+            # state blowup): host matchers verify candidates exactly
+            self.mode = "alpha"
+            self.members = [AlphaRunScanner(*cp.alpha_plan)]
+        elif stride_plan(cp.dfa) is not None and buf_size >= MIN_STRIDE_BUF:
             self.mode = "gdfa"
-            member = self._gdfa = StrideDfaScanner(cp.dfa, cp.max_len, buf_size)
-        self.members = [member]
-        # stride routes upload the buffer born transposed, the word
-        # kernels the linear words with their zero pad rows
-        self._transposed = isinstance(member, (_StrideSeqMember, StrideDfaScanner))
+            self._gdfa = StrideDfaScanner(cp.dfa, cp.max_len, buf_size)
+            self.members = [self._gdfa]
+        else:
+            self.mode = "dfa"
+            self.members = [DfaWalkMember(cp.dfa, buf_size, block, stream_seg, HALO)]
+        # word members read the linear words with their zero pad rows (the
+        # last-resort walk their first buf_size bytes); a stride member
+        # reads the buffer born transposed, a second upload beside them
+        self._stride = next(
+            (m for m in self.members if getattr(m, "wants_transposed", False)), None
+        )
+        self._linear = any(m is not self._stride for m in self.members)
         self._want = buf_size + PAD_ROWS * LANES * 4
-        nbytes = member.s_w * N_STREAMS * 4 if self._transposed else self._want
-        self._uploader = _PinnedUploader(nbytes, self.device) if on_gpu else None
+        sizes = [self._want] if self._linear else []
+        if self._stride is not None:
+            sizes.append(self._stride.s_w * N_STREAMS * 4)
+        self._uploader = _PinnedUploader(sizes, self.device) if on_gpu else None
 
     @staticmethod
     def _alpha_eligible(plan) -> bool:
-        from grab_tpu_torch.ops.alpharun import alpharun_eligible
-
         return plan is not None and alpharun_eligible(plan[0], plan[1])
 
-    def _seq_scanner(self, cp):
-        """The class_seq mode's member (the reference's
-        ``_seq_scanner(standalone=True)``): the union strided-DFA member
-        when the sequences' automaton is bounded within the window reach
-        and has a stride plan, and the buffer is at least 1 MiB; else
-        the class-sequence word kernel."""
-        sd, sml = cp.seq_dfa, cp.seq_max_len
-        if (
-            sd is not None
-            and sml is not None
-            and sml <= STRIDE_HALO - 8
-            and stride_plan(sd) is not None
-            and self.buf_size >= MIN_STRIDE_BUF
-        ):
-            return _StrideSeqMember(sd, sml, self.buf_size)
-        return ClassSeqScanner(compile_sequences(cp.class_seqs))
+    def _seq_scanner(self, cp, standalone: bool = False):
+        """The member serving the sequence-routed patterns (the
+        reference's ``_seq_scanner``): the union strided-DFA member when
+        the sequences' automaton is bounded within the window reach and
+        has a stride plan, the buffer is at least 1 MiB and, inside the
+        literal ensemble, there are at least two sequences (one AND
+        chain rides the fused pass almost free) and GRAB_TPU_SEQDFA is
+        not "0"; else the class-sequence word kernel. Inside the
+        ensemble the member absorbs the < 7-byte literals when their
+        union automaton plans no worse (``_shorts_absorbed``)."""
 
-    def _scan(self, member, dev_buf: torch.Tensor):
-        """(total int32 [1], payload) of one uploaded buffer (uint8)."""
-        if self._transposed:
-            w2d = dev_buf.view(torch.int32).view(member.s_w * STREAM_ROWS, LANES)
-            return member.packed_t(w2d)
-        return member.packed(dev_buf.view(torch.int32).view(-1, LANES))
+        def eligible(d, ml):
+            return (
+                d is not None
+                and ml is not None
+                and ml <= STRIDE_HALO - 8
+                and stride_plan(d) is not None
+            )
+
+        def score(d):
+            # plan quality: k-stride depth dominates, run beats cls, 8-bit
+            # beats 16-bit
+            mode, k = stride_plan(d)
+            return (
+                2 * k
+                + (2 if mode.startswith("run") else 1)
+                - (1 if mode.endswith("16") else 0)
+            )
+
+        sd, sml = cp.seq_dfa, cp.seq_max_len
+        seqs = compile_sequences(cp.class_seqs)
+        self._shorts_absorbed = False
+        if (
+            eligible(sd, sml)
+            and self.buf_size >= MIN_STRIDE_BUF
+            and (standalone or len(seqs) >= 2)
+            and os.environ.get("GRAB_TPU_SEQDFA") != "0"
+        ):
+            sds, smls = cp.seq_dfa_shorts, cp.seq_shorts_max_len
+            if not standalone and eligible(sds, smls) and score(sds) >= score(sd):
+                self._shorts_absorbed = True
+                return _StrideSeqMember(sds, smls, self.buf_size)
+            return _StrideSeqMember(sd, sml, self.buf_size)
+        return ClassSeqScanner(seqs)
+
+    def _literal_members(self, cp) -> list:
+        """The literal ensemble (the reference's _build_pallas, literal
+        mode): the fused single-pass scanner when it has two members or
+        sits beside a stride member, else (and with GRAB_TPU_NO_FUSED=1)
+        one scanner per member."""
+        literals = [bytes(l) for l in cp.literals]
+        seqs = compile_sequences(cp.class_seqs) if cp.class_seqs else None
+        seq_member = self._seq_scanner(cp) if seqs else None
+        stride_seq = isinstance(seq_member, _StrideSeqMember)
+        if os.environ.get("GRAB_TPU_NO_FUSED") != "1":
+            fused_lits = (
+                [l for l in literals if len(l) >= 7] if self._shorts_absorbed else literals
+            )
+            fsc = FusedEnsembleScanner(fused_lits, None if stride_seq else seqs)
+            if fsc.n_members >= 2 or (fsc.n_members >= 1 and stride_seq):
+                return [fsc] + ([seq_member] if stride_seq else [])
+        longs = [l for l in literals if len(l) >= 7]
+        # shorts absorbed into the stride member ride its union automaton
+        shorts = [] if self._shorts_absorbed else [l for l in literals if len(l) < 7]
+        members = []
+        if len(longs) > MAX_LONG_LITERALS:
+            members.append(XorWordScanner(longs))
+        else:
+            shorts += longs
+        for i in range(0, len(shorts), MAX_KERNEL_LITERALS):
+            members.append(CoreWordScanner(shorts[i : i + MAX_KERNEL_LITERALS]))
+        if seq_member is not None:
+            members.append(seq_member)
+        return members
+
+    def _scan(self, devs: List[torch.Tensor]):
+        """(total int32 [1], payloads) of one batch's uploaded buffers
+        (uint8: the linear words when a member reads them, then the
+        transposed words beside a stride member)."""
+        lin = devs[0] if self._linear else None
+        words2d = lin.view(torch.int32).view(-1, LANES) if lin is not None else None
+        total, payloads = None, []
+        for m in self.members:
+            if m is self._stride:
+                w2d_t = devs[-1].view(torch.int32).view(m.s_w * STREAM_ROWS, LANES)
+                t, pk = m.packed_t(w2d_t)
+            elif getattr(m, "wants_bytes", False):
+                t, pk = m.packed(lin[: self.buf_size])
+            else:
+                t, pk = m.packed(words2d)
+            total = t if total is None else total + t
+            payloads.append(pk)
+        return total, payloads
 
     def submit(self, buf: np.ndarray):
-        """Start the scan of one packer buffer; returns (total, payload,
-        ready). On the GPU the upload, the kernel and the count's copy
+        """Start the scan of one packer buffer; returns (total, payloads,
+        ready). On the GPU the uploads, the kernels and the count's copy
         into pinned host memory are queued asynchronously, so the host
         goes on packing the next batch; ``ready`` marks the count's
         arrival (None on the CPU)."""
@@ -288,45 +354,50 @@ class DeviceScanner:
         if buf.shape[0] < want:  # caller without the packer's tail
             buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
         buf = buf[:want]
-        member = self.members[0]
+        stride = self._stride
         lin = buf[: self.buf_size]
+
+        def fill(stagings):
+            if self._linear:
+                np.copyto(stagings[0], buf)
+            if stride is not None:
+                # the host transpose writes straight into the pinned slot
+                stride.prep_t(lin, out=stagings[-1].view(np.int32).reshape(
+                    stride.s_w, N_STREAMS))
+
         if self._uploader is None:
-            if self._transposed:
-                raw = torch.from_numpy(member.prep_t(lin).reshape(-1).view(np.uint8))
-            else:
-                raw = torch.from_numpy(buf)
-            total, payload = self._scan(member, raw)
-            return total, payload, None
-        if self._transposed:
-            # the host transpose writes straight into the pinned slot
-
-            def fill(staging):
-                member.prep_t(lin, out=staging.view(np.int32).reshape(member.s_w, N_STREAMS))
-        else:
-
-            def fill(staging):
-                np.copyto(staging, buf)
-
-        total, payload = self._uploader.run(fill, lambda dev: self._scan(member, dev))
+            raws = [torch.from_numpy(buf)] if self._linear else []
+            if stride is not None:
+                raws.append(torch.from_numpy(stride.prep_t(lin).reshape(-1).view(np.uint8)))
+            total, payloads = self._scan(raws)
+            return total, payloads, None
+        total, payloads = self._uploader.run(fill, self._scan)
         host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
         host_total.copy_(total, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return host_total, payload, ready
+        return host_total, payloads, ready
 
     def resolve(self, handles) -> np.ndarray:
         """Wait for a submitted scan → int32 [buf_size/block] 0/1 flags.
         A clean batch costs one 4-byte pull, waited for by its own
         event, not by a sync of the batches queued after it; the
-        payload (packed flags or the strided-DFA bitmap) leaves the
-        device only when the count is nonzero."""
+        members' payloads (packed flags, or the strided-DFA bitmap)
+        leave the device only when the summed count is nonzero, and
+        their decoded flags are unioned."""
         nb = self.buf_size // self.block
-        total, payload, ready = handles
+        total, payloads, ready = handles
         if ready is not None:
             ready.synchronize()
+        flags = np.zeros(nb, dtype=np.int32)
         if int(total) == 0:
-            return np.zeros(nb, dtype=np.int32)
-        return self.members[0].flags_np(payload.cpu().numpy(), nb)
+            return flags
+        for m, pk in zip(self.members, payloads):
+            np.maximum(flags, m.flags_np(pk.cpu().numpy(), nb), out=flags)
+        return flags
+
+    def scan(self, buf: np.ndarray) -> np.ndarray:
+        return self.resolve(self.submit(buf))
 
 
 class CorpusPipeline:

@@ -5,8 +5,9 @@ Stdout and exit code must be byte-identical to ``grab_tpu.cli.main``
 tests/test_conformance.py plus a planted corpus whose files are larger
 than the 2 MiB CPU scan buffer, so they span batches and their halos.
 The port runs with GRAB_TPU_TORCH_DEVICE=cpu: the kernels' plain
-PyTorch versions. Out-of-slice plans and modes must exit 255 with one
-stderr line naming their ROADMAP item, never a quiet host replay.
+PyTorch versions. Every single-device plan is served; the modes still
+out of the port (-n N, multi-host, --via) must exit 255 with one stderr
+line naming their ROADMAP item, never a quiet host replay.
 """
 
 import io
@@ -205,13 +206,16 @@ def test_device_scanner_flags_match_reference(planted):
 
 @pytest.mark.parametrize(
     "argv,item",
-    [
+    [  # item: the ROADMAP item; A6-A9 have landed and are served, A10+ refused
         ([".{0,2}[0-9]{11}"], "ROADMAP A7"),  # alphabet-run plan
         # no stride plan (1001 states x 6 classes): the last-resort walk
         ([".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"], "ROADMAP A6"),
         (["-H", "@needle+seq"], "ROADMAP A8"),  # literals with sequences
         (["-n", "4", "needle"], "ROADMAP A10"),
         (["--hosts", "2", "needle"], "ROADMAP A11"),
+        (["-n", "2", "-O", "needle"], "ROADMAP A10"),
+        (["-n", "2", ".{0,2}[0-9]{11}"], "ROADMAP A10"),
+        (["--hosts", "2", "--pid", "0", "needle"], "ROADMAP A11"),
     ],
 )
 def test_out_of_slice_refused(corpus, tmp_path, argv, item):
@@ -219,7 +223,14 @@ def test_out_of_slice_refused(corpus, tmp_path, argv, item):
         pats = tmp_path / "pats.txt"
         pats.write_bytes(b"needle\n[0-9]{3}[a-z]{2}\n")
         argv = argv[:-1] + [str(pats)]
-    rc, out, err = _run(port_cli, argv[:-1] + ["-r", argv[-1], str(corpus)])
+    argv = argv[:-1] + ["-r", "-O", argv[-1], str(corpus)]
+    rc, out, err = _run(port_cli, argv)
+    if item in ("ROADMAP A6", "ROADMAP A7", "ROADMAP A8"):
+        # in the slice now: served, byte for byte as the reference
+        assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0
+        if item == "ROADMAP A8":
+            assert out.count(b"\n") >= 4
+        return
     assert rc == 255 and out == b""
     lines = err.strip().splitlines()
     assert len(lines) == 1 and item in lines[0] and "not ported" in lines[0]
@@ -228,10 +239,12 @@ def test_out_of_slice_refused(corpus, tmp_path, argv, item):
 def test_via_and_big_batches_refused(corpus, tmp_path):
     rc, _, err = _run(port_cli, ["--via", "/tmp/sock", "-r", "needle", str(corpus)])
     assert rc == 255 and "ROADMAP A12" in err
+    # a 20-literal batch is served now (two compare buckets, ROADMAP A9)
     pats = tmp_path / "many.txt"
-    pats.write_bytes(b"\n".join(b"lit%02d" % i for i in range(20)))
-    rc, out, err = _run(port_cli, ["-H", "-r", str(pats), str(corpus)])
-    assert rc == 255 and out == b"" and "ROADMAP A9" in err
+    pats.write_bytes(b"\n".join([b"lit%02d" % i for i in range(19)] + [b"needle"]))
+    argv = ["-H", "-r", "-O", str(pats), str(corpus)]
+    rc, out, _ = _run(port_cli, argv)
+    assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0 and out.count(b"\n") >= 4
 
 
 def test_cuda_device_without_card_raises(corpus, monkeypatch):
@@ -323,3 +336,111 @@ def test_unbounded_engine_routes_gdfa_and_replays_oversize(punct):
     want = []
     host.scan_data("big.bin", data, want.append)
     assert b"".join(out) == b"".join(want) != b""
+
+
+# -- the -H / -S literal ensemble and the remaining scan plans --------------
+
+H_CASES = [
+    # (patterns, flags): the conformance corpus's needle files under -H
+    ([b"needle", b"nothing", b"int main"], ["-O"]),
+    ([b"needle", b"[0-9]{3}[a-z]{2}", b"n[a-z]+e"], ["-O"]),  # literals with sequences
+    ([b"lit%02d" % i for i in range(30)] + [b"needle", b"pass"], ["-l"]),
+    ([b"longliteral%02d" % i for i in range(8)] + [b"short needle line"], []),  # XOR filter
+    ([b"needle", b"return", b"nothing to see"], ["-S", "-O"]),  # -S -H
+    ([b"ne", b"needle"], ["-S"]),  # a 2-byte literal beside a literal
+    ([b".{0,2}[0-9]{11}", b"needle"], ["-O"]),  # an uncovered pattern in the batch
+]
+
+
+@pytest.mark.parametrize("pats,flags", H_CASES, ids=[f"H{i}" for i in range(len(H_CASES))])
+def test_pattern_file_batches_identical(corpus, tmp_path, pats, flags):
+    f = tmp_path / "pats.txt"
+    f.write_bytes(b"\n".join(pats) + b"\n")
+    argv = ["-H", "-r"] + flags + [str(f), str(corpus)]
+    got, want = _run(port_cli, argv), _run(ref_cli, argv)
+    assert got[:2] == want[:2] and got[0] == 0 and got[1]
+
+
+@pytest.fixture(scope="module")
+def mixed(tmp_path_factory):
+    """The 100-literal + 10-regex batch of tests/test_mixed_batch.py as
+    a pattern file, over a tree holding its planted data in files that
+    span the 2 MiB CPU buffer."""
+    import test_mixed_batch
+
+    root = tmp_path_factory.mktemp("mixed")
+    pats, data, _plants = test_mixed_batch.build()
+    (root / "pats.txt").write_bytes(b"\n".join(pats) + b"\n")
+    tree = root / "tree"
+    (tree / "sub").mkdir(parents=True)
+    (tree / "m.txt").write_bytes(data)
+    (tree / "sub" / "big.txt").write_bytes(data * 4)  # 2.4 MB: two batches
+    (tree / "sub" / "tail.txt").write_bytes(data[390_000:460_000])
+    return root
+
+
+@pytest.mark.parametrize("env", [{}, {"GRAB_TPU_NO_FUSED": "1"}, {"GRAB_TPU_SEQDFA": "0"}],
+                         ids=["default", "no_fused", "no_seqdfa"])
+def test_mixed_batch_identical(mixed, monkeypatch, env):
+    for var in ("GRAB_TPU_NO_FUSED", "GRAB_TPU_SEQDFA"):
+        monkeypatch.delenv(var, raising=False)
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    argv = ["-r", "-H", "-O", str(mixed / "pats.txt"), str(mixed / "tree")]
+    rc, out, _ = _run(port_cli, argv)
+    assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0
+    assert out.count(b"\n") >= 40  # 8 planted patterns in 5+ copies
+
+
+ALPHA_CASES = [
+    ["-r", "-O", ".{0,2}[0-9]{11}"],  # alpha, coarse
+    ["-E", "-r", "-O", ".{0,2}[0-9]{11}"],
+    # alpha with no automaton, fine mode (-2: no PCRE1 capture quirk)
+    ["-2", "-r", "-O", ".{0,2}([0-9]{6})\\1"],
+    ["-r", "-l", ".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){3}"],  # the last-resort walk
+]
+
+
+@pytest.fixture(scope="module")
+def digits(tmp_path_factory):
+    """Text files with digit runs and a few a1gAN-shaped runs planted,
+    one file over the 2 MiB CPU buffer."""
+    root = tmp_path_factory.mktemp("digits")
+    rng = np.random.default_rng(23)
+    (root / "sub").mkdir()
+    for i, n in enumerate((50_000, 64_000, (2 << 20) + 70_000)):
+        data = bytearray(rng.integers(58, 127, size=n, dtype=np.uint8).tobytes())
+        for p in range(0, n, 93):
+            data[p] = 0x0A
+        for p in range(500 + i * 37, n - 40, max(4999, n // 40)):
+            data[p : p + 13] = b"x91827364550x"
+            data[p + 20 : p + 32] = b"123456123456"
+        stride = (2 << 20) - 0x1000
+        if n > stride:
+            data[stride - 5 : stride + 6] = b"00112233445"
+            data[stride + 0x1000 - 4 : stride + 0x1000 + 11] = b"c3hDPa1gANb2hBO"
+        data[300:315] = b"a1gANb2hBOc3hDP"
+        (root / ("sub/" if i else "") / f"f{i}.txt").write_bytes(bytes(data))
+    return root
+
+
+@pytest.mark.parametrize("argv", ALPHA_CASES, ids=[" ".join(a) for a in ALPHA_CASES])
+def test_alpha_and_walk_corpus_identical(digits, argv):
+    argv = argv + [str(digits)]
+    rc, out, _ = _run(port_cli, argv)
+    assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0
+    assert out.count(b"\n") >= 3
+
+
+def test_engine_routes_alpha_and_walk(digits):
+    """The engine builds the alpha and dfa modes on the CPU device."""
+    from grab_tpu_torch.engine import Engine, EngineConfig
+
+    eng = Engine([rb".{0,2}[0-9]{11}"], EngineConfig(device="cpu"))
+    assert eng._device_usable() and eng._get_scanner().mode == "alpha"
+    assert not eng._dfa_tier_unbounded()
+    eng = Engine([rb".{0,2}([0-9]{6})\1"], EngineConfig(device="cpu"))
+    assert eng.compiled.dfa is None and eng._get_scanner().mode == "alpha"
+    eng = Engine([rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){3}"],
+                 EngineConfig(device="cpu", scan_buf_size=64 << 10))
+    assert eng._get_scanner().mode == "dfa"

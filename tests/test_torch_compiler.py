@@ -135,6 +135,14 @@ out = []
 eng = Engine(b"needle", EngineConfig(device="cpu"))
 eng.scan_data("f", b"abc needle xyz\n" * 1000, out.append)
 assert b"".join(out).count(b"needle") >= 1, out
+import grab_tpu_torch.ops.alpharun, grab_tpu_torch.ops.dfa_scan
+import grab_tpu_torch.ops.fused, grab_tpu_torch.ops.xorfilter
+pats = [b"longliteral%02d" % i for i in range(6)] + [b"needle", rb"[0-9]{3}[a-z]{2}"]
+for p in (pats, [rb".{0,2}[0-9]{11}"]):
+    out = []
+    eng = Engine(p, EngineConfig(device="cpu"))
+    eng.scan_data("f", b"abc longliteral03 needle 123ab x91827364550x\n" * 500, out.append)
+    assert out, p
 leaked = [m for m in sys.modules
           if m.split(".")[0] == "grab_tpu" or (m.split(".")[0] == "jax" and sys.modules[m] is not None)]
 assert not leaked, leaked

@@ -255,3 +255,163 @@ def test_device_scanner_new_routes_match_cpu(cuda, pattern):
         want = cpu.resolve(cpu.submit(b))
         assert g.dtype == want.dtype and (g == want).all()
     assert got[0].any() and not got[1].any()
+
+
+# -- alphabet-run (B3), XOR-filter (B5) and fused ensemble (B6) kernels -------
+
+
+def _run_words(kind: str, ranges, seed: int) -> np.ndarray:
+    """_words with runs of member bytes across row, group and buffer-end
+    boundaries."""
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([np.arange(lo, hi + 1) for lo, hi in ranges]).astype(np.uint8)
+    w = _words(kind, [b":;<"], seed)
+    buf = w[: N // BLOCK].view(np.uint8).reshape(-1)
+    for pos, ln in [(3, 60), (517, 12), (1025, 7), (2048, 5), (4999, 3), (6000, 2),
+                    (9003, 1), (BLOCK - 9, 40), (32 * BLOCK - 17, 36), (64 * BLOCK - 2, 9),
+                    (N - 33, 33), (N - 3, 3)]:
+        buf[pos : pos + ln] = rng.choice(pool, size=ln)
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["text", "binary", "zeros"])
+def test_alpharun_kernel_matches_plain(cuda, kind):
+    from grab_tpu_torch.ops import alpharun as ar
+
+    range_sets = [((48, 57),), ((0, 0), (48, 57)), ((0x80, 0xBF), (0xF0, 0xFF)),
+                  tuple((16 * i + 1, 16 * i + 6) for i in range(8)), ((0, 255),)]
+    plans = [("coarse", u) for u in (1, 2, 4, 8)] + [("fine", u) for u in (1, 2, 4)]
+    for i, ranges in enumerate(range_sets):
+        w = torch.from_numpy(_run_words(kind, ranges, i)).to(cuda)
+        for mode, units in plans:
+            before = ar.alpharun_flags.launches
+            got = ar.alpharun_flags(w, ranges, mode, units)
+            assert ar.alpharun_flags.launches == before + 1
+            bm = ar.alpharun_bitmap_torch(w, ranges, mode, units)
+            want = cw.packed_block_flags(bm) + (bm,)
+            torch.cuda.synchronize()
+            for g, x in zip(got, want):
+                assert g.dtype == x.dtype and torch.equal(g, x), (ranges, mode, units)
+        assert int(got[0].item()) > 0
+
+
+def _long_literals(k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [bytes(rng.integers(33, 127, size=int(rng.integers(7, 12)), dtype=np.uint8))
+            for _ in range(k)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [5, 40, 100, 1000])
+def test_xor_kernel_matches_plain(cuda, k):
+    from grab_tpu_torch.ops import xorfilter as xf
+
+    lits = _long_literals(k, k)
+    tests = xf.XorWordTests(lits)
+    for kind in ("text", "binary", "zeros"):
+        w = torch.from_numpy(_words(kind, lits, k)).to(cuda)
+        before = xf.xor_word_flags.launches
+        got = xf.xor_word_flags(w, tests)
+        assert xf.xor_word_flags.launches == before + 1
+        bm = xf.xor_bitmap_torch(w, tests.tables(), tests.consts())
+        want = cw.packed_block_flags(bm) + (bm,)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x)
+        assert int(got[0].item()) > 0
+    nul = torch.zeros((64 + PAD_ROWS, LANES), dtype=torch.int32, device=cuda)
+    assert int(xf.xor_word_flags(nul, tests)[0].item()) == 0  # NUL words are no members
+
+
+def _fused_ensembles():
+    from grab_tpu_torch.ops.classseq import compile_sequences
+
+    rng = np.random.default_rng(6)
+    shorts = [bytes(rng.integers(97, 123, size=int(rng.integers(3, 7)), dtype=np.uint8))
+              for _ in range(60)]
+    one = compile_sequences([(DIGIT, DIGIT, DIGIT, HIGH)])
+    three = compile_sequences([(DIGIT,) * 5, (HIGH, DIGIT, HIGH), (DIGIT,) * 8])
+    return [
+        (_long_literals(100, 1), one),  # the 100-literal batch: filter + 1 sequence
+        (shorts + _long_literals(40, 2), three),  # 4 buckets + filter + sequences
+        ([b"linus", b"lmnus"], three),  # one bucket + sequences
+        (_long_literals(3, 3) + shorts[:30], None),  # buckets only, W=2 masked
+        ([b"needle%02dXY" % i for i in range(4)] + _long_literals(8, 4), None),  # filter only
+        (shorts * 20, None),  # 75 buckets: the program exceeds 48 KiB of shared memory
+        (shorts * 64, None),  # 240 buckets: the program is read from global memory
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["text", "binary", "zeros"])
+def test_fused_kernel_matches_plain(cuda, kind):
+    from grab_tpu_torch.ops import fused as fu
+
+    for i, (lits, seqs) in enumerate(_fused_ensembles()):
+        sc = fu.FusedEnsembleScanner(lits, seqs)
+        plants = lits[:6] + [b"123\x80", b"12345", b"\x85" + b"7\x81"]
+        w = torch.from_numpy(_words(kind, plants, i)).to(cuda)
+        before = fu.fused_word_flags.launches
+        got = fu.fused_word_flags(w, sc)
+        assert fu.fused_word_flags.launches == before + 1
+        bm = fu.fused_bitmap_torch(w, sc)
+        want = cw.packed_block_flags(bm) + (bm,)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), (i, sc.cw_shapes)
+        assert int(got[0].item()) > 0
+
+
+ENSEMBLE_PLANS = {
+    "fused + stride member": [b"[0-9]{3}[a-z]{2}", b"[0-9]{4}[a-z]", b"qZxW", b"kV9#p"]
+    + [b"needle_%d" % i for i in range(5)],
+    "fused, one sequence": [b"needle", b"linus", rb"[0-9]{3}[a-z]{2}"]
+    + [b"longliteral%02d" % i for i in range(6)],
+    "alpha": [rb".{0,2}[0-9]{11}"],
+    "last-resort walk": [rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){3}"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("no_fused", [False, True])
+@pytest.mark.parametrize("plan", list(ENSEMBLE_PLANS))
+def test_device_scanner_ensembles_match_cpu(cuda, monkeypatch, plan, no_fused):
+    """Multi-member scanners (two uploads beside a stride member), alpha
+    and the walk, two batches in flight: flags equal the CPU scanner's."""
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    monkeypatch.delenv("GRAB_TPU_SEQDFA", raising=False)
+    if no_fused:
+        monkeypatch.setenv("GRAB_TPU_NO_FUSED", "1")
+    else:
+        monkeypatch.delenv("GRAB_TPU_NO_FUSED", raising=False)
+    buf_size = (64 << 10) if plan == "last-resort walk" else (1 << 20)
+    cp = compile_multi(ENSEMBLE_PLANS[plan])
+    dev = DeviceScanner(cp, buf_size=buf_size, device="cuda")
+    cpu = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    assert dev.mode == cpu.mode
+    assert [type(m) for m in dev.members] == [type(m) for m in cpu.members]
+    rng = np.random.default_rng(11)
+    bufs = []
+    for i in range(3):
+        b = rng.choice(np.frombuffer(b" -_=+()\nghijkm", np.uint8), size=buf_size + 4096)
+        b[buf_size:] = 0
+        for pos in (100 + i, 4093, buf_size // 3, buf_size - 60):
+            for k, s in enumerate((b"123ab", b"4567q", b"qZxW", b"needle_3", b"linus",
+                                   b"longliteral04", b"x91827364550x", b"a1gANb2hBOc3hDP")):
+                at = min(pos + 17 * k, buf_size - len(s))
+                b[at : at + len(s)] = np.frombuffer(s, np.uint8)
+        bufs.append(b)
+    bufs[1][:] = ord("-")
+    pending = [dev.submit(bufs[0])]
+    got = []
+    for b in bufs[1:]:
+        pending.append(dev.submit(b))
+        got.append(dev.resolve(pending.pop(0)))
+    got.append(dev.resolve(pending.pop(0)))
+    for g, b in zip(got, bufs):
+        want = cpu.resolve(cpu.submit(b))
+        assert g.dtype == want.dtype and (g == want).all()
+    assert got[0].any() and not got[1].any()

@@ -324,14 +324,30 @@ def test_device_scanner_gdfa_flags_match_reference():
 
 @pytest.mark.parametrize(
     "pattern,buf_size,item",
-    [
+    [  # item: the ROADMAP item whose landing serves the plan (refused before it)
         (rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}", 2 << 20, "ROADMAP A6"),
         (rb".{0,2}[a-z ]{11,}", 512 << 10, "ROADMAP A6"),
         (rb".{0,2}[0-9]{11}", 2 << 20, "ROADMAP A7"),
     ],
 )
 def test_plan_refusal_names_item(pattern, buf_size, item):
-    from grab_tpu_torch.scan_pipeline import DeviceScanner, NotPortedError
+    """No single-device plan is refused any more: the plans that the
+    last-resort walk (A6) and the alphabet-run tier (A7) brought build
+    the reference's mode and member; only a pattern without any device
+    form raises, as in the reference."""
+    from grab_tpu.scan_pipeline import DeviceScanner as RefScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, plan_refusal
 
-    with pytest.raises(NotPortedError, match=item):
-        DeviceScanner(compile_multi([pattern]), buf_size=buf_size, device="cpu")
+    cp = compile_multi([pattern])
+    assert plan_refusal(cp) is None
+    p = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    r = RefScanner(ref_compile([pattern]), buf_size=buf_size, pallas_interpret=True)
+    assert p.mode == r.mode == {"ROADMAP A6": "dfa", "ROADMAP A7": "alpha"}[item]
+    want = {"dfa": "DfaWalkMember", "alpha": "AlphaRunScanner"}[p.mode]
+    assert type(p.members[0]).__name__ == want
+    if p.mode == "alpha":
+        assert type(r._cw_list[0]).__name__ == want
+    no_form = compile_multi([rb"(.)\1"])  # a backreference and no class run
+    assert plan_refusal(no_form) is not None
+    with pytest.raises(ValueError, match="no device-scannable form"):
+        DeviceScanner(no_form, buf_size=buf_size, device="cpu")
