@@ -39,6 +39,17 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          40 long literals + 3 sequences, and one bucket + 3 sequences;
        - the last-resort DFA walk (plain PyTorch on both devices) on
          the card against itself on the CPU at 2 MiB;
+       - B7 stride transpose ([16384, 512], [16384, 32], [16384, 640]
+         int32 stream rows), beside one PyTorch call of the same
+         function (``a.t().contiguous()``); then the scanner entries
+         that run it: ``StrideDfaScanner.run`` on the linear upload
+         against ``run_t`` on the buffer born transposed (a window-mode
+         and a threading pattern) and ``_StrideSeqMember.packed``
+         against ``packed_t``, hits planted across stream boundaries;
+       - B8 bloom filter: 5, 100 and 1000 literals (3, 5 and 6 levels),
+         needles at every phase and in the last row; then
+         ``BloomWordScanner`` over three buffers: every block holding a
+         planted literal is flagged;
   4. the main paths, each command through ``cli.main`` on the card with
      every launch counter set to 0 just before it and read just after;
      stdout must equal the port's host-only scan (device="none") byte
@@ -69,6 +80,15 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      the host-only scans of the new routes (a Python regex VM, ~1 MB/s)
      run beside the card's work in subprocesses, each on a slice of the
      tree in walk order, and their outputs are joined in that order;
+     then ``-n N``: ``-n 4`` caps at the cards present and prints what
+     ``-n 1`` prints; with the device list ``cuda:0,cuda:0`` and ``-n 2``
+     (two lanes and two streams on the one card: the group path, not
+     scaling) one route of each mode prints what ``-n 1`` printed, and a
+     miss scan's groups pull no payload; then the scan server as a
+     subprocess (``python -m grab_tpu_torch.server``): requests through
+     ``--via``'s client must print what the direct CLI printed, a
+     nonexistent path gives exit 255, and the first and second ``-H``
+     request are timed;
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
      bound; the last-resort walk per 32 MiB buffer; then a miss or
@@ -83,6 +103,7 @@ of JAX (``jax`` is blocked in sys.modules) and nothing of grab_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -957,6 +978,191 @@ def phase_walk(torch, np, rng):
     return out
 
 
+# -- B7: the stride transpose, and B8: the bloom filter -------------------------
+
+
+def phase_transpose(torch, np, rng):
+    """B7 against its plain version, bit for bit, at the three stream
+    geometries; its time beside a device copy's, the plain version's
+    and one PyTorch call of the same function."""
+    from grab_tpu_torch.ops import stridedfa as sd
+
+    dev = torch.device("cuda")
+    results = []
+    for s_w in (BUF // sd.N_STREAMS // 4, 32, 640):
+        host = rng.integers(-(1 << 31), 1 << 31, size=(sd.N_STREAMS, s_w), dtype=np.int32)
+        a = torch.from_numpy(host).to(dev)
+        got = sd.stride_transpose(a, s_w)
+        torch.cuda.synchronize()
+        want = sd.stride_transpose_torch(a, s_w)
+        check(got.shape == (s_w * 128, 128) and got.is_contiguous() and torch.equal(got, want),
+              f"stride transpose [16384, {s_w}]: kernel != plain")
+        # the definition, at a few places: out[g*128 + r, c] = a[r*128 + c, g]
+        for g, r, c in ((0, 0, 0), (s_w - 1, 127, 127), (s_w // 2, 5, 77), (1, 127, 0)):
+            check(int(got[g * 128 + r, c]) == int(host[r * 128 + c, g]),
+                  f"stride transpose [16384, {s_w}]: wrong word at {(g, r, c)}")
+        ring = [a] + [a + i for i in range(1, 4)]
+        ms = time_cuda(torch, lambda i: sd.stride_transpose(ring[i % 4], s_w), 40)
+        plain_ms = time_cuda(torch, lambda i: sd.stride_transpose_torch(ring[i % 4], s_w), 40)
+        library_ms = time_cuda(torch, lambda i: ring[i % 4].t().contiguous(), 40)
+        dst = torch.empty_like(a)
+        copy_ms = time_cuda(torch, lambda i: dst.copy_(ring[i % 4]), 40)
+        nbytes = 2 * a.numel() * 4  # every word read once and written once
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        results.append({"s_w": s_w, "shape": [sd.N_STREAMS, s_w], "max_abs_err": 0, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": library_ms, "copy_ms": copy_ms,
+                        "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes})
+        log(f"stride transpose [16384, {s_w}]: kernel == plain, bit for bit; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, a.t().contiguous() {library_ms:.4f} ms, d2d copy "
+            f"{copy_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+        del ring, dst
+    return results
+
+
+def phase_transpose_paths(torch, np, rng):
+    """The scanner entries that run B7, with the counters set to 0 just
+    before: ``StrideDfaScanner.run`` on the linear upload against
+    ``run_t`` on the buffer born transposed, ``_StrideSeqMember.packed``
+    on the shared linear words against ``packed_t``."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, _StrideSeqMember
+
+    dev = torch.device("cuda")
+    text = rng.integers(33, 127, size=BUF, dtype=np.uint8)
+    for s_ in range(1, 16384, 97):  # "hello world" across stream boundaries
+        text[s_ * 2048 - 5 : s_ * 2048 + 6] = np.frombuffer(b"hello world", np.uint8)
+    punct = punct_bytes(np, rng, BUF)
+    for s_ in range(3, 16000, 211):  # runs across stream boundaries
+        plant_run(punct, s_ * 2048 - 9, 30)
+    plant_run(punct, 5 * 2048 + 100, 6000)  # longer than a whole stride
+    soup = rng.choice(np.frombuffer(SOUP, np.uint8), size=BUF)
+    spots = [s_ * 2048 - 3 for s_ in range(2, 16384, 173)] + [777, BUF - 9]
+    for i, pos in enumerate(spots):
+        lit = (b"12345ab", b"999xy", b"4567q")[i % 3]
+        soup[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
+    out = {}
+    reset_counters()
+    for label, pat, buf in (("window pass, .{0,2}[a-z ]{11}", rb".{0,2}[a-z ]{11}", text),
+                            ("fixpoint, .{0,2}(?:[0-9a-zA-Z]{4})+",
+                             rb".{0,2}(?:[0-9a-zA-Z]{4})+", punct)):
+        cp = compile_multi([pat])
+        sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, BUF)
+        words = torch.from_numpy(sc.prep(buf)).to(dev)  # the linear upload
+        bm, n, conv = sc.run(words)
+        w_t = torch.from_numpy(sc.prep_t(buf)).to(dev)
+        bm_t, n_t, conv_t = sc.run_t(w_t)
+        torch.cuda.synchronize()
+        check(torch.equal(bm, bm_t) and (int(n), bool(conv)) == (int(n_t), bool(conv_t)),
+              f"run(words) != run_t(prep_t(buf)): {label}")
+        flags = sc.flags_np(bm.cpu().numpy(), BUF // 512)
+        check(int(flags.sum()) > 100, f"run(words): planted hits not flagged: {label}")
+        out[label] = {"walks": int(n), "flagged_blocks": int(flags.sum())}
+        log(f"run(words) on the linear upload == run_t(prep_t(buf)): {label} "
+            f"(walks {int(n)}, {int(flags.sum())} flagged blocks)")
+    pats = batch_literals(np) + BATCH_SEQS
+    ds = DeviceScanner(compile_multi(pats), buf_size=BUF, device="cuda")
+    member = ds._stride
+    check(isinstance(member, _StrideSeqMember), "the batch's scanner has no stride member")
+    words2d = np.zeros((ROWS + 8, 128), dtype="<i4")
+    words2d[:ROWS] = soup.view("<i4").reshape(ROWS, 128)
+    t_l, pk_l = member.packed(torch.from_numpy(words2d).to(dev))
+    w_t = torch.from_numpy(member.prep_t(soup)).to(dev)
+    t_t, pk_t = member.packed_t(w_t)
+    torch.cuda.synchronize()
+    check(int(t_l.item()) == int(t_t.item()) > 0 and torch.equal(pk_l, pk_t),
+          "_StrideSeqMember.packed(words2d) != packed_t")
+    flags = member.flags_np(pk_l.cpu().numpy(), BUF // 512)
+    check(np.array_equal(flags, member.flags_np(pk_t.cpu().numpy(), BUF // 512)),
+          "_StrideSeqMember: flags differ")
+    missed = [p_ for p_ in spots if not flags[p_ // 512] and not flags[(p_ + 6) // 512]]
+    check(not missed, f"_StrideSeqMember.packed missed planted hits at {missed[:5]}")
+    launches = read_counters()
+    check(launches["transpose"] == 3 and launches["stride"] > 0,
+          f"the linear-words entries did not run the transpose kernel: {launches}")
+    out["member"] = {"flagged_blocks": int(flags.sum()), "planted": len(spots)}
+    log(f"_StrideSeqMember.packed(words2d) == packed_t: {int(flags.sum())} flagged blocks for "
+        f"{len(spots)} planted hits; launches {launches}")
+    return out, launches["transpose"]
+
+
+def bloom_buffers(np, rng, lits, n_bufs: int = 3):
+    """Text buffers with literals planted at every phase, across row and
+    32-row group boundaries and in the last row; → [(host words, planted
+    byte positions)]."""
+    out = []
+    for b in range(n_bufs):
+        buf = rng.integers(32, 127, size=BUF, dtype=np.uint8)
+        spots = [1000 * (i + 1) + i % 4 + 37 * b for i in range(64)]
+        spots += [g * 32 * 512 - 3 - b for g in (1, 9, 1000, ROWS // 32 - 1)]
+        spots += [r * 512 + 509 - b for r in (0, 4097, ROWS - 2)] + [BUF - 12 - b]
+        planted = []
+        for i, pos in enumerate(spots):
+            lit = lits[(i + b) % len(lits)]
+            pos = min(pos, BUF - len(lit))
+            buf[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
+            planted.append(pos)
+        words = np.zeros((ROWS + 8, 128), dtype="<i4")
+        words[:ROWS] = buf.view("<i4").reshape(ROWS, 128)
+        out.append((words, planted))
+    return out
+
+
+def phase_bloom(torch, np, rng, rate):
+    """B8 against its plain version at 32 MiB geometry, bit for bit."""
+    from grab_tpu_torch.ops import bloom as bl
+
+    results = []
+    for k in (100, 5, 1000):
+        lits = long_literals(np, rng, k)
+        tests = bl.BloomWordTests(lits)
+        bufs = kernel_buffers(np, rng, lits)
+        for kind in bufs:  # needles at every phase, all through the set
+            flat = bufs[kind][:ROWS].reshape(-1).view(np.uint8)
+            for i, lit in enumerate(lits[:64]):
+                pos = 700_000 + 37 * i
+                flat[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
+        # per word and level: a multiply, two shifts and a mask for the
+        # hash fields, the shift by the bit index, the AND (the shared
+        # read is not counted); 2 to fold the hit into the bitmap word
+        results.append(word_kernel_case(
+            torch, f"bloom {k} literals ({tests.levels} levels, {tests.n_keys} keys)", bufs,
+            lambda w: bl.bloom_word_flags(w, tests),
+            lambda w: bl.bloom_bitmap_torch(w, tests.tbl, tests.levels),
+            (6 * tests.levels + 2) * ROWS * 128, rate,
+            {"set": f"{k} literals", "literals": k, "keys": tests.n_keys,
+             "levels": tests.levels}))
+    return results
+
+
+def phase_bloom_path(torch, np, rng):
+    """``BloomWordScanner`` on the card, the counters set to 0 just
+    before: three 32 MiB buffers, every block holding a planted literal
+    flagged, few others."""
+    from grab_tpu_torch.ops import bloom as bl
+
+    dev = torch.device("cuda")
+    lits = long_literals(np, rng, 100)
+    sc = bl.BloomWordScanner(lits)
+    bufs = bloom_buffers(np, rng, lits)
+    reset_counters()
+    shares = []
+    for words, planted in bufs:
+        w = torch.from_numpy(words).to(dev)
+        total, packed = sc.packed(w)
+        flags = sc.flags_np(packed.cpu().numpy(), ROWS)
+        missed = [p_ for p_ in planted if not flags[p_ // 512]]
+        check(not missed, f"BloomWordScanner missed planted literals at {missed[:5]}")
+        check(int(total.item()) > 0 and flags.mean() < 0.05,
+              f"BloomWordScanner flagged {flags.mean():.4f} of the blocks")
+        shares.append(float(flags.mean()))
+    n = read_counters()["bloom"]
+    check(n == len(bufs), f"BloomWordScanner launched the bloom kernel {n} times")
+    log(f"BloomWordScanner (100 literals, {sc.tests.levels} levels): every planted block "
+        f"flagged in {len(bufs)} buffers; flagged share {shares}; {n} launches")
+    return {"flagged_share": shares, "levels": sc.tests.levels}, n
+
+
 # -- the class_seq and gdfa main paths ---------------------------------------
 
 SEQ_PLANTS = [b"QWERTY123456", b"ABCDEF000001", b"\t4711\t", b"\t9\t", b"\t123456789\t",
@@ -1223,6 +1429,7 @@ ROUTE_COMMANDS = [
 
 def counters():
     from grab_tpu_torch.ops import alpharun as ar
+    from grab_tpu_torch.ops import bloom as bl
     from grab_tpu_torch.ops import classseq as cs
     from grab_tpu_torch.ops import corewords as cw
     from grab_tpu_torch.ops import fused as fu
@@ -1231,7 +1438,8 @@ def counters():
 
     return {"corewords": cw.core_word_flags, "classseq": cs.classseq_flags,
             "stride": sd.stride_dfa_scan, "alpharun": ar.alpharun_flags,
-            "xor": xf.xor_word_flags, "fused": fu.fused_word_flags}
+            "xor": xf.xor_word_flags, "fused": fu.fused_word_flags,
+            "transpose": sd.stride_transpose, "bloom": bl.bloom_word_flags}
 
 
 def reset_counters():
@@ -1253,7 +1461,7 @@ def phase_routes(torch, np, trees, refs, tmp):
     from grab_tpu_torch import cli
     from grab_tpu_torch.engine import Engine
 
-    runs = []
+    runs, outs = [], {}
     for r in ROUTE_COMMANDS:
         root = trees[r["tree"]][0]
         engines = []
@@ -1291,6 +1499,7 @@ def phase_routes(torch, np, trees, refs, tmp):
         check(out == want, f"{shown}: device stdout ({len(out)} B) != host stdout "
                            f"({len(want)} B)")
         check(len(out) > 0, f"{shown}: no matches printed for the planted hits")
+        outs[r["key"]] = out
         st = engines[-1].stats
         runs.append({"key": r["key"], "argv": shown, "mode": sc.mode, "members": got,
                      "stdout_bytes": len(out), "launches": launches,
@@ -1299,7 +1508,257 @@ def phase_routes(torch, np, trees, refs, tmp):
         log(f"stdout == host scan: {shown} → {sc.mode}/{got} ({len(out)} B, "
             f"launches {launches}, device run {dev_s:.2f}s, waited {wait_s:.2f}s for the "
             f"host scan)")
-    return runs
+    return runs, outs
+
+
+# -- -n N: the group submit, and the scan server ---------------------------------
+
+TWO_LANES = "cuda:0,cuda:0"  # two lanes, two streams, one card: the group path
+GROUP_LITERAL = "QWERTY"  # planted in mtree (SEQ_PLANTS)
+CLEAN_MISS = "z\x01Q\x02x\x03m\x04i\x05s\x06s"
+GROUP_ROUTES = [  # (route key, tree, scan_buf_size of the -n 2 run, counters)
+    ("seq-stride", "mtree", 4 << 20, ["stride"]),
+    ("gdfa-thread", "ntree", 4 << 20, ["stride"]),
+    ("alpha-coarse", "mtree", 4 << 20, ["alpharun"]),
+    ("batchseq-stride", "stree", 2 << 20, ["fused", "stride"]),
+]
+
+
+def write_group_tree(np, rng, tmp):
+    """ntree: ~16 MB of punctuation in files under 3 MB (none spans a
+    4 MiB buffer, so none is replayed whole), alnum runs planted across
+    stream boundaries: the threading route's -n 2 run."""
+    punct = punct_bytes(np, rng, 32 << 20)
+
+    def plant(data, i):
+        for k in range(1, data.size // 2048, 29):
+            plant_run(data, k * 2048 - 9 - (i % 7), 12 + (k % 40))
+
+    ntree = os.path.join(tmp, "ntree")
+    sizes = [int(x) for x in np.exp(rng.uniform(np.log(300 << 10), np.log(3 << 20), size=14))]
+    return ntree, write_files(np, ntree, punct, sizes, plant)
+
+
+def phase_groups(torch, np, trees, tree, tmp, outs):
+    """-n N on the card: the cap at the cards present, then two lanes on
+    the one card against what -n 1 printed, one route of each mode; a
+    miss scan's groups pull no payload, its rate beside -n 1's.
+    → (results, the stdout of ``-r GROUP_LITERAL mtree``)."""
+    from grab_tpu_torch import cli
+    from grab_tpu_torch.engine import Engine
+    from grab_tpu_torch.parallel.sharded import ShardedScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    engines = []
+
+    def keep(**over):
+        def factory(pats, cfg):
+            e = Engine(pats, dataclasses.replace(cfg, **over))
+            engines.append(e)
+            return e
+        return factory
+
+    def run(argv, **over):
+        reset_counters()
+        t0 = time.perf_counter()
+        rc, out, err = run_cli(cli, argv, factory=keep(**over))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{argv[:-1]}: rc {rc}: {err}")
+        return out, wall, read_counters(), engines[-1]
+
+    res = {"routes": []}
+    mtree = trees["mtree"][0]
+    one, _, _, eng = run(["-r", GROUP_LITERAL, mtree])
+    check(len(one) > 0 and type(eng._get_scanner()) is DeviceScanner,
+          f"-r {GROUP_LITERAL} mtree: no output, or not the single-device scanner")
+    cards = torch.cuda.device_count()
+    four, _, n4, eng = run(["-n", "4", "-r", GROUP_LITERAL, mtree])
+    sc = eng._get_scanner()
+    check(eng._effective_shards() == min(4, cards) and four == one and n4["corewords"] > 0,
+          f"-n 4 on {cards} card(s): {eng._effective_shards()} shards, stdout "
+          f"{'equal' if four == one else 'differs'}")
+    check(isinstance(sc, ShardedScanner) == (cards > 1), f"-n 4: scanner {type(sc).__name__}")
+    log(f"-n 4 -r {GROUP_LITERAL} mtree on {cards} card(s): capped to {eng._effective_shards()} "
+        f"shard(s), stdout == -n 1 ({len(one)} B)")
+    res["cap"] = {"cards": cards, "shards": eng._effective_shards(), "stdout_bytes": len(one)}
+
+    by_key = {r["key"]: r for r in ROUTE_COMMANDS}
+    cases = [("literal", ["-r"], GROUP_LITERAL, mtree, 4 << 20, ["corewords"], one)]
+    for key, tname, buf, counted in GROUP_ROUTES:
+        r = by_key[key]
+        root = trees[tname][0]
+        want = outs.get(key) if tname == r["tree"] else None
+        if want is None:  # another tree than the route's: what -n 1 prints there
+            want = run(r["flags"] + [route_pattern(r, tmp), root])[0]
+        cases.append((key, r["flags"], route_pattern(r, tmp), root, buf, counted, want))
+    for key, flags, pattern, root, buf, counted, want in cases:
+        argv = ["-n", "2"] + flags + [pattern, root]
+        out, wall, launches, eng = run(argv, device=TWO_LANES, scan_buf_size=buf)
+        sc = eng._get_scanner()
+        check(isinstance(sc, ShardedScanner) and sc.group_size == 2 and len(sc.lanes) == 2,
+              f"-n 2 {key}: scanner {type(sc).__name__}")
+        check(all(l.device.type == "cuda" for l in sc.lanes)
+              and sc._streams[0] is not sc._streams[1], f"-n 2 {key}: lanes not on the card")
+        check(len(want) > 0 and out == want,
+              f"-n 2 {key}: stdout ({len(out)} B) != -n 1 stdout ({len(want)} B)")
+        for c in counted:
+            check(launches[c] > 0, f"-n 2 {key}: the {c} kernel was never launched")
+        st = eng.stats
+        check(st.device_batches >= 3, f"-n 2 {key}: only {st.device_batches} batches")
+        res["routes"].append({"key": key, "mode": sc.mode,
+                              "members": [type(m).__name__ for m in sc.members],
+                              "stdout_bytes": len(out), "launches": launches, "wall_s": wall,
+                              "batches": st.device_batches, "payload_pulls": sc.payload_pulls})
+        log(f"-n 2 on {TWO_LANES}: stdout == -n 1: {key} → {sc.mode}/"
+            f"{[type(m).__name__ for m in sc.members]} ({len(out)} B, {st.device_batches} "
+            f"batches in groups of 2, {sc.payload_pulls} payload pulls, launches {launches})")
+
+    # a miss scan: every group is clean, so no lane pulls a payload; its
+    # rate beside -n 1's in the same call, in turns. Every aligned word
+    # of this literal holds a control byte, so no word of the printable
+    # tree passes the core-word test by chance (zQx##missing## flags a
+    # few dozen blocks of it)
+    miss = ["-r", "-S", CLEAN_MISS, tree]
+    walls = {1: [], 2: []}
+    for turn in range(3):
+        for n in ((1, 2) if turn % 2 == 0 else (2, 1)):
+            over = {"device": TWO_LANES} if n == 2 else {}
+            out, wall, launches, eng = run(["-n", str(n)] + miss, **over)
+            check(out == b"", f"-n {n} miss scan printed matches")
+            walls[n].append(wall)
+            if n == 2:
+                sc, st = eng._get_scanner(), eng.stats
+                check(isinstance(sc, ShardedScanner) and sc.payload_pulls == 0
+                      and launches["corewords"] == st.device_batches >= 4,
+                      f"-n 2 miss scan: {sc.payload_pulls} payload pulls, launches "
+                      f"{launches['corewords']}, batches {st.device_batches}")
+                nbytes = st.bytes_scanned
+    res["miss"] = {"bytes": nbytes, "walls_s": {str(k): v for k, v in walls.items()},
+                   "gbps": {str(k): [nbytes / w / 1e9 for w in v] for k, v in walls.items()}}
+    log(f"miss scan over the tree, {nbytes} bytes: -n 1 walls {walls[1]} s, -n 2 on "
+        f"{TWO_LANES} walls {walls[2]} s (clean groups: no payload pulled) → "
+        f"{res['miss']['gbps']} GB/s")
+    return res, one
+
+
+@contextlib.contextmanager
+def captured_stdio():
+    """sys.stdout (with a .buffer) and sys.stderr into memory, for the
+    server's client, which writes to them."""
+    out, err = io.BytesIO(), io.StringIO()
+
+    class Stdout:
+        buffer = out
+
+        @staticmethod
+        def flush():
+            pass
+
+    old = sys.stdout, sys.stderr
+    sys.stdout, sys.stderr = Stdout(), err
+    try:
+        yield out, err
+    finally:
+        sys.stdout, sys.stderr = old
+
+
+def phase_server(torch, np, here, trees, tmp, outs, one_literal):
+    """The scan server as a subprocess on the card; requests through the
+    --via client against what the direct CLI printed."""
+    from grab_tpu_torch import cli
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    sock = os.path.join(tmp, "tpugrep.sock")
+    log_path = os.path.join(tmp, "server.log")
+    env = dict(os.environ, PYTHONPATH=here)
+    env.pop("GRAB_TPU_TORCH_DEVICE", None)
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as logf:
+        srv = subprocess.Popen([sys.executable, "-m", "grab_tpu_torch.server", sock],
+                               cwd=here, env=env, stdout=logf, stderr=logf)
+    res = {}
+    try:
+        while not os.path.exists(sock) and srv.poll() is None:
+            check(time.perf_counter() - t0 < 600, "the server's socket did not appear in 600 s")
+            time.sleep(0.1)
+        with open(log_path, "rb") as f:
+            server_log = f.read().decode(errors="replace")
+        check(srv.poll() is None, f"the server exited with {srv.returncode}: {server_log[-2000:]}")
+        res["start_s"] = time.perf_counter() - t0
+        log(f"server started and warmed (kernels loaded, 3 core-word shapes at 32 MiB) in "
+            f"{res['start_s']:.1f}s")
+
+        def request(argv):
+            t1 = time.perf_counter()
+            with captured_stdio() as (out, err):
+                rc = cli.main(["--via", sock] + argv)
+            return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t1
+
+        mtree, ctree, gbulk = (trees[k][0] for k in ("mtree", "ctree", "gbulk"))
+        batch4 = os.path.join(tmp, "batch4.txt")
+        rc, out, err, wall = request(["-r", GROUP_LITERAL, mtree])
+        check(rc == 0 and out == one_literal, f"server: -r {GROUP_LITERAL} mtree: rc {rc}, stdout differs: {err}")
+        res["literal_s"] = wall
+        # the -H batch's miss scan: the first request builds the scanner
+        # (the filter's peeling, the fused program), the second finds it
+        # cached and pays for the patterns' compile alone
+        walls, stats = [], []
+        for _ in range(2):
+            rc, out, err, wall = request(["--stats", "-r", "-H", batch4, gbulk])
+            check(rc == 0 and out == b"", f"server: -H batch4 gbulk: rc {rc}: {err}")
+            walls.append(wall)
+            stats.append(err.strip())
+        res["batch4_miss_walls_s"], res["batch4_miss_stats"] = walls, stats
+        rc, out, err, wall = request(["-r", "-H", "-O", batch4, ctree])
+        check(rc == 0 and out == outs["batch4-fused"],
+              f"server: -H batch4 ctree: rc {rc}, stdout ({len(out)} B) differs: {err}")
+        res["batch4_hits_wall_s"] = wall
+        rc, out, err, _ = request(["-r", "zQx##missing##", mtree])
+        check(rc == 0 and out == b"", f"server: miss: rc {rc}, {len(out)} B: {err}")
+        rc, out, err, _ = request(["-n", "4", "-r", GROUP_LITERAL, mtree])
+        check(rc == 0 and out == one_literal, f"server: -n 4 -r {GROUP_LITERAL} mtree: rc {rc}: {err}")
+        nope = os.path.join(tmp, "nonexistent")
+        rc, out, err, _ = request(["-S", "x", nope])
+        rc_d, out_d, err_d = run_cli(cli, ["-S", "x", nope])
+        check((rc, out, err) == (rc_d, out_d, err_d) and rc == 255 and "stat" in err,
+              f"server: nonexistent path: rc {rc}, stderr {err!r}; direct rc {rc_d}, {err_d!r}")
+        check(srv.poll() is None, "the server died while serving")
+        # what the server saves a single-pattern scan: the same command
+        # as a process of its own (interpreter, CUDA context, kernel load)
+        t1 = time.perf_counter()
+        fresh = subprocess.run([sys.executable, "-m", "grab_tpu_torch.cli", "-r", GROUP_LITERAL, mtree],
+                               cwd=here, env=env, capture_output=True, timeout=600)
+        res["literal_fresh_process_s"] = time.perf_counter() - t1
+        check(fresh.returncode == 0 and fresh.stdout == one_literal,
+              f"a fresh CLI process: rc {fresh.returncode}: {fresh.stderr.decode()[-500:]}")
+        with open(batch4, "rb") as f:
+            pats = [ln for ln in f.read().splitlines() if ln]
+        t1 = time.perf_counter()
+        cp = compile_multi(pats)
+        res["compile_multi_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        DeviceScanner(cp, device="cuda")  # what the server's cache saves a request
+        res["scanner_build_s"] = time.perf_counter() - t1
+        log(f"server: stdout == direct CLI for literal, -H batch4 (miss twice, hits once), miss, -n 4 "
+            f"(capped) and a nonexistent path (exit 255)")
+        log(f"server: -r -H batch4 gbulk, first request {walls[0]:.3f} s, second {walls[1]:.3f} s "
+            f"(in this process: compile_multi of the 110 patterns "
+            f"{res['compile_multi_s']:.3f} s, the scanner's build {res['scanner_build_s']:.3f} s); "
+            f"stats: {stats}")
+        log(f"server: -r -H -O batch4 ctree (hits replayed): {res['batch4_hits_wall_s']:.3f} s; -r {GROUP_LITERAL} mtree "
+            f"{res['literal_s']:.3f} s through the server, {res['literal_fresh_process_s']:.3f} s "
+            f"as a process of its own")
+    finally:
+        if srv.poll() is None:
+            srv.terminate()
+            try:
+                srv.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                srv.kill()
+                srv.wait()
+    return res
 
 
 def main() -> int:
@@ -1338,7 +1797,8 @@ def main() -> int:
 
     t0 = time.time()
     libs = _build.build_cuda(
-        ["corewords", "classseq", "stridedfa", "alpharun", "xorfilter", "fused"])
+        ["corewords", "classseq", "stridedfa", "alpharun", "xorfilter", "fused",
+         "transpose", "bloom"])
     t_cuda = time.time() - t0
     t0 = time.time()
     native_ok = native.available()
@@ -1348,6 +1808,9 @@ def main() -> int:
         f"({t_ingest:.1f}s)")
 
     rng = np.random.default_rng(SEED)
+    # the phases added later draw from a stream of their own, so the
+    # earlier phases' trees and buffers stay what they were
+    rng4 = np.random.default_rng(SEED + 4)
     sms = props.multi_processor_count
     refs = HostRefs(here)
     try:
@@ -1356,6 +1819,7 @@ def main() -> int:
             # in subprocesses beside everything below
             t0 = time.time()
             trees = write_route_trees(np, rng, tmp)
+            trees["ntree"] = write_group_tree(np, rng4, tmp)
             for r in sorted(ROUTE_COMMANDS, key=lambda r: r["tree"] != "gtree"):
                 if r["ref"] == r["key"]:
                     refs.start(r["key"], r["flags"], route_pattern(r, tmp), trees[r["tree"]][0])
@@ -1372,10 +1836,14 @@ def main() -> int:
             xres = phase_xor(torch, np, rng, rate)
             fres = phase_fused(torch, np, rng, rate)
             wres = phase_walk(torch, np, rng)
+            tres = phase_transpose(torch, np, rng4)
+            tpaths, t_launches = phase_transpose_paths(torch, np, rng4)
+            bres = phase_bloom(torch, np, rng4, rate)
+            bpath, b_launches = phase_bloom_path(torch, np, rng4)
 
             # 4. the main paths, then 5b. their miss / near-miss scans
             tree, tree_bytes, n_files, runs, launches = phase_main_path(torch, np, rng, tmp)
-            route_runs = phase_routes(torch, np, trees, refs, tmp)
+            route_runs, outs = phase_routes(torch, np, trees, refs, tmp)
             refs.close()
             e2e = phase_e2e(torch, np, tree)
             gbulk = trees["gbulk"][0]
@@ -1395,6 +1863,8 @@ def main() -> int:
                           ["-r", "-H", os.path.join(tmp, "batchseq.txt"), gbulk],
                           "fused stride", False),
             ]
+            gres, one_literal = phase_groups(torch, np, trees, tree, tmp, outs)
+            vres = phase_server(torch, np, here, trees, tmp, outs, one_literal)
     finally:
         refs.close()
 
@@ -1404,7 +1874,8 @@ def main() -> int:
             "launches": n_launches, "equal_plain": True,
             "max_abs_err": max(r["max_abs_err"] for r in res),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None, "copy_ms": head["copy_ms"],
+            "bound_by": head["bound_by"], "library_ms": head.get("library_ms"),
+            "copy_ms": head["copy_ms"],
             "by_case": [{k: r[k] for k in keys} for r in res],
         }
 
@@ -1434,6 +1905,12 @@ def main() -> int:
             "grab_tpu/ops/pallas_fused.py:182",
             sum(r["launches"]["fused"] for r in route_runs), fres, fres[0],
             ("set", "buckets", "banks", "seqs") + common),
+        row("stride_transpose", "grab_tpu_torch/csrc/transpose.cu",
+            "grab_tpu/ops/pallas_stridedfa.py:631", t_launches, tres, tres[0],
+            ("s_w",) + common + ("library_ms",)),
+        row("bloom_word_bitmap", "grab_tpu_torch/csrc/bloom.cu",
+            "grab_tpu/ops/pallas_bloom.py:129", b_launches, bres, bres[0],
+            ("set", "levels", "keys") + common),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: never launched on a main path")
@@ -1443,7 +1920,9 @@ def main() -> int:
         "build_s": {"nvcc": t_cuda, "ingest": t_ingest}, "native_ingest": native_ok,
         "buf_size": BUF, "kernel_sets": kres, "classseq_sets": cres, "stride_plans": sres,
         "stride_scanner": scres, "alpharun_sets": ares, "xor_sets": xres, "fused_sets": fres,
-        "dfa_walk": wres, "main_path": runs, "route_paths": route_runs,
+        "dfa_walk": wres, "transpose_shapes": tres, "transpose_paths": tpaths,
+        "bloom_sets": bres, "bloom_path": bpath, "groups": gres, "server": vres,
+        "main_path": runs, "route_paths": route_runs,
         "tree": {"bytes": tree_bytes, "files": n_files},
         "route_trees": {k: v[1] for k, v in trees.items()},
         "miss_scan": e2e, "route_scans": route_e2e,

@@ -15,13 +15,16 @@ Package layout:
   ingest/         corpus walker + batch packer + native pread/walk library
   format/         reference-exact output grammar (copy)
   scan_pipeline.py  DeviceScanner (device routing, uploads) + CorpusPipeline
+  parallel/       -n N: shard devices and the ShardedScanner (group submit)
   engine.py       orchestrator (the FileGrep equivalent)
   cli.py          `tpugrep` command-line front end
+  server.py       scan server with warm scanners (`tpugrep --via <socket>`)
 
 The scan runs on the CUDA card unless the caller asks for the CPU
 (``EngineConfig(device="cpu")`` or GRAB_TPU_TORCH_DEVICE=cpu), where
 each kernel's plain PyTorch version runs instead; ``device="none"`` is
-the pure host scan.
+the pure host scan, and a comma-separated list of torch devices names
+the -n N shard devices one by one.
 """
 
 __version__ = "0.1.0"

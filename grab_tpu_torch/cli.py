@@ -3,10 +3,12 @@
 Usage: ``python -m grab_tpu_torch.cli [flags] <pattern> <path>...``.
 Stdout is byte-identical to the JAX package's ``grab_tpu.cli``. The
 scan runs on the CUDA card; GRAB_TPU_TORCH_DEVICE=cpu runs the
-kernels' plain PyTorch versions on the CPU instead. What the port does
-not serve yet is refused with one stderr line naming its ROADMAP item
-and exit 255: -n N with N > 1, multi-host (--hosts /
-JAX_NUM_PROCESSES) and --via.
+kernels' plain PyTorch versions on the CPU instead, and a
+comma-separated list of torch devices names the -n N shard devices.
+``--via <socket>`` as the first argument sends the rest to a running
+scan server (grab_tpu_torch.server). What the port does not serve yet
+is refused with one stderr line naming its ROADMAP item and exit 255:
+multi-host (--hosts / JAX_NUM_PROCESSES).
 
 Flag surface mirrors the reference exactly
 (greppin src/main.cc:103-161 + greppin extensions,
@@ -19,8 +21,8 @@ README.md:16-31):
   -l      no line printing ("matches" per chunk unless -O)
   -s      single match per file
   -n N    parallel scan over N workers (reference: cores; here: device
-          shards — requires -r, main.cc:167-170; chunk quartered,
-          main.cc:172-173); only N = 1 is ported
+          shards, capped at the shard devices present — requires -r,
+          main.cc:167-170; chunk quartered, main.cc:172-173)
   -2      PCRE2 semantics (greppin, README.md:18)
   -S      literal (fixed-string) mode (greppin, README.md:25-26)
   -H      multi-pattern batch mode: the pattern argument is a file with
@@ -48,7 +50,7 @@ from typing import List, Optional
 
 from grab_tpu_torch.engine import Engine, EngineConfig
 from grab_tpu_torch.format.emitter import OutputConfig
-from grab_tpu_torch.scan_pipeline import DeviceUnavailable, NotPortedError
+from grab_tpu_torch.scan_pipeline import DeviceUnavailable
 
 USAGE = "Usage: {p} [-rR] [-I] [-O] [-L] [-l] [-s] [-n <cores>] [-2] [-S] [-H] [-E] <regex> <path>\n"
 
@@ -183,16 +185,10 @@ class _TorchTrace:
         return False
 
 
-def _refusal(argv: List[str], opts) -> Optional[str]:
+def _refusal(opts) -> Optional[str]:
     """The stderr line for a mode the port does not serve yet."""
-    if argv[:1] == ["--via"]:
-        return "tpugrep: --via (scan server) is not ported yet (ROADMAP A12)"
-    if opts is None:
-        return None
-    if opts["hosts"] or os.environ.get("JAX_NUM_PROCESSES"):
+    if opts is not None and (opts["hosts"] or os.environ.get("JAX_NUM_PROCESSES")):
         return "tpugrep: multi-host mode is not ported yet (ROADMAP A11)"
-    if opts["cores"] > 1 and opts["recursive"]:
-        return "tpugrep: -n N > 1 (several GPUs) is not ported yet (ROADMAP A10)"
     return None
 
 
@@ -210,6 +206,16 @@ def main(
     from grab_tpu_torch.regex import ctype as _ctype
 
     _ctype.activate_from_environment()
+    if argv[:1] == ["--via"]:
+        # route through a running scan server (grab_tpu_torch.server):
+        # its warm scanners save a repeat scan the kernels' build and
+        # load and the scanner's tables
+        from grab_tpu_torch.server import client
+
+        if len(argv) < 2:
+            print("tpugrep: --via needs a socket path", file=err or sys.stderr)
+            return 255
+        return client(argv[1], argv[2:])
     is_tty = sys.stdout.isatty() if out is None else bool(
         getattr(out, "isatty", lambda: False)()
     )
@@ -217,11 +223,8 @@ def main(
         out = sys.stdout.buffer
     if err is None:
         err = sys.stderr
-    if argv[:1] == ["--via"]:
-        opts, chunk_size, args = None, 0, []
-    else:
-        opts, chunk_size, args = parse_args(argv)
-    refused = _refusal(argv, opts)
+    opts, chunk_size, args = parse_args(argv)
+    refused = _refusal(opts)
     if refused:
         print(refused, file=err)
         return 255
@@ -269,7 +272,7 @@ def main(
 
     try:
         engine = (engine_factory or Engine)(patterns, cfg)
-    except (NotPortedError, DeviceUnavailable) as e:
+    except DeviceUnavailable as e:
         print(f"tpugrep: {e}", file=err)
         return 255
     except Exception as e:

@@ -6,8 +6,9 @@ the reference's, and its four device touch points are the port's
 The scan runs on the CUDA card unless the caller asks for the CPU
 (``EngineConfig.device``, default from GRAB_TPU_TORCH_DEVICE, else
 "cuda"). Every plan the reference's single-device scanner serves has a
-device mode here; several shards (-n N) are refused when the Engine is
-built (scan_pipeline.NotPortedError).
+device mode here; -n N scans groups of N buffers over the shard devices
+that the device setting names (parallel/sharded.py), capped at their
+number.
 
 Pipeline (the TPU restructuring of FileGrep::find,
 greppin src/grab.cc:131-239):
@@ -49,8 +50,7 @@ from grab_tpu_torch.scan_pipeline import (
     HALO,
     CorpusPipeline,
     DeviceScanner,
-    NotPortedError,
-    resolve_device,
+    resolve_devices,
 )
 
 CANDIDATE_BLOCK = 512
@@ -384,12 +384,14 @@ def _default_device() -> str:
 class EngineConfig:
     output: OutputConfig = field(default_factory=OutputConfig)
     mode: str = "pcre1"  # pcre1 | pcre2 | literal
-    # cuda | cpu | none  (none = pure host scan; cpu = the kernels'
-    # plain PyTorch versions; cuda without a card raises)
+    # cuda | cpu | none | a comma-separated list of torch devices
+    # (none = pure host scan; cpu = the kernels' plain PyTorch versions;
+    # cuda = every visible card, and without one it raises; a list names
+    # the -n N shard devices one by one and may repeat one)
     device: str = field(default_factory=_default_device)
     pcre1_quirks: bool = True  # replicate the ovector[3] capture quirk
     scan_buf_size: Optional[int] = None  # fixed device buffer (None = auto)
-    n_shards: int = 1  # -n N: only 1 is ported (ROADMAP A10)
+    n_shards: int = 1  # -n N: device shards, capped at the shard devices
     exact: bool = False  # -E: no chunk quirks; forces host-only scan
     # when the device path cannot guarantee trigger-in-halo coverage
     walk_workers: int = 0  # parallel tree-discovery threads
@@ -397,8 +399,20 @@ class EngineConfig:
     # 1 = force the serial Python walker)
 
 
+def effective_shards(cfg: EngineConfig) -> int:
+    """-n N capped at the shard devices the device setting names (the
+    reference errors out when threads > cores, main.cc:211-214; the JAX
+    package degrades to the hardware instead, and so does the port)."""
+    if cfg.n_shards <= 1 or cfg.device == "none":
+        return 1
+    return max(1, min(cfg.n_shards, len(resolve_devices(cfg.device))))
+
+
 class Engine:
-    def __init__(self, patterns, config: Optional[EngineConfig] = None):
+    def __init__(self, patterns, config: Optional[EngineConfig] = None, scanner=None):
+        """``scanner``: a device scanner built earlier for the same
+        patterns, mode, buffer size, devices and shard count (the scan
+        server's cache), used in place of building one."""
         self.cfg = config or EngineConfig()
         if isinstance(patterns, (str, bytes)):
             patterns = [patterns]
@@ -411,22 +425,12 @@ class Engine:
         self._line_narrow = not any(
             A.may_match_newline(t) for t in self.compiled.asts
         )
-        self._scanner = None  # DeviceScanner, built by _check_port
-        self._check_port()
-
-    def _check_port(self) -> None:
-        """Refuse, at construction, what the port cannot serve yet
-        (several shards), and build the DeviceScanner, so a missing
-        CUDA card raises here too."""
-        if self.cfg.device == "none":
-            return
-        resolve_device(self.cfg.device)
-        if self.cfg.n_shards > 1:
-            raise NotPortedError(
-                "-n N over several GPUs is not ported yet (ROADMAP A10)"
-            )
-        if self._device_usable():
-            self._get_scanner()
+        self._scanner = scanner
+        if self.cfg.device != "none":
+            # build the scanner now, so a missing CUDA card raises here
+            resolve_devices(self.cfg.device)
+            if self._device_usable():
+                self._get_scanner()
 
     # -- exact engine selection ----------------------------------------
 
@@ -533,7 +537,7 @@ class Engine:
         if getattr(self, "_host_fallback_noted", False):
             return
         self._host_fallback_noted = True
-        if self.cfg.device != "cuda":
+        if "cuda" not in self.cfg.device:
             return  # explicit host or CPU request, not a surprise
         print(
             "tpugrep: pattern not device-servable"
@@ -571,17 +575,26 @@ class Engine:
     def _get_scanner(self):
         # buffer size: the user's scan_buf_size or the device default
         if self._scanner is None:
-            self._scanner = DeviceScanner(
-                self.compiled,
-                buf_size=self.cfg.scan_buf_size,
-                device=self.cfg.device,
-            )
+            n = self._effective_shards()
+            if n > 1:
+                from grab_tpu_torch.parallel.sharded import ShardedScanner
+
+                self._scanner = ShardedScanner(
+                    self.compiled,
+                    n,
+                    buf_size=self.cfg.scan_buf_size,
+                    devices=self.cfg.device,
+                )
+            else:
+                self._scanner = DeviceScanner(
+                    self.compiled,
+                    buf_size=self.cfg.scan_buf_size,
+                    device=resolve_devices(self.cfg.device)[0],
+                )
         return self._scanner
 
     def _effective_shards(self) -> int:
-        """Only one device is ported (ROADMAP A10); -n N > 1 is refused
-        when the Engine is built."""
-        return 1
+        return effective_shards(self.cfg)
 
     # -- scanning ------------------------------------------------------
 

@@ -31,6 +31,13 @@ on CUDA tensors they launch the hand-written kernel csrc/stridedfa.cu
 (the fixpoint queues all its rounds without a host sync), on CPU tensors
 they run the plain PyTorch walk below, which the tests hold against the
 reference's kernel in interpret mode and its numpy oracle.
+
+``stride_transpose`` is the relayout in front of the walk for a buffer
+that arrives in linear layout (stream rows [16384, s_w]): on a CUDA
+tensor the hand-written kernel csrc/transpose.cu, on a CPU tensor a
+plain transposed copy. The scanner's ``run`` / ``run2d`` / ``packed``
+go through it; ``run_t`` / ``packed_t`` take the buffer born transposed
+on the host (``prep_t``), which is what DeviceScanner uploads.
 """
 
 from __future__ import annotations
@@ -481,6 +488,62 @@ def stride_dfa_fixpoint(words2d_t: torch.Tensor, tables: StrideDfaTables):
     return bm, state[1], state[0]
 
 
+# -- the relayout: stream rows → the walk's stream-major geometry -----------
+
+
+def stride_transpose_torch(a: torch.Tensor, s_w: int) -> torch.Tensor:
+    """Plain PyTorch relayout: int32 [N_STREAMS, s_w] → [s_w*128, 128]."""
+    return a.t().contiguous().view(s_w * STREAM_ROWS, LANES)
+
+
+def stride_transpose(a: torch.Tensor, s_w: int) -> torch.Tensor:
+    """Stream-row words int32 [N_STREAMS, s_w] → the walk's geometry
+    int32 [s_w*128, 128]: word g of stream (r, c) at row g*128 + r,
+    lane c (s = r*128 + c). s_w must be a multiple of 32 (the scanner's
+    strides give 32 or a multiple of 128).
+
+    CUDA tensor: one launch of csrc/transpose.cu on the current stream
+    (counted in ``stride_transpose.launches``); a refused launch raises.
+    CPU tensor: the plain PyTorch version."""
+    if a.dtype != torch.int32 or tuple(a.shape) != (N_STREAMS, s_w):
+        raise ValueError(f"stream rows must be int32 [{N_STREAMS}, {s_w}], got "
+                         f"{a.dtype} {tuple(a.shape)}")
+    if s_w <= 0 or s_w % 32:
+        raise ValueError(f"s_w must be a positive multiple of 32, got {s_w}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    if a.device.type == "cpu":
+        return stride_transpose_torch(a, s_w)
+    if not a.is_contiguous():
+        raise ValueError("stream rows must be contiguous")
+    out = torch.empty((s_w * STREAM_ROWS, LANES), dtype=torch.int32, device=a.device)
+    err = _transpose_lib()(a.data_ptr(), out.data_ptr(), N_STREAMS, s_w, *_dev_tail(a.device))
+    if err != 0:
+        raise RuntimeError(f"stride transpose kernel launch failed: CUDA error {err}")
+    stride_transpose.launches += 1
+    return out
+
+
+stride_transpose.launches = 0
+
+
+def _transpose_lib():
+    from grab_tpu_torch import _build
+
+    fn = _build.cuda_library("transpose").gt_stride_transpose
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p,  # stream rows
+            ctypes.c_void_p,  # out
+            ctypes.c_int,  # streams
+            ctypes.c_int,  # s_w
+            ctypes.c_int,  # device index
+            ctypes.c_void_p,  # stream
+        ]
+    return fn
+
+
 # -- the scanner ------------------------------------------------------------
 
 
@@ -586,10 +649,32 @@ class StrideDfaScanner:
             return torch.cat([bm, bmw], dim=0), 1, True
         return stride_dfa_fixpoint(w2d, self.tables)
 
+    def run2d(self, a: torch.Tensor):
+        """a: int32 [N_STREAMS, S_w] stream rows on their device: the
+        device-side relayout entry, for a buffer that shares its upload
+        with word-kernel members and so arrives in linear layout."""
+        return self.run_t(stride_transpose(a, self.s_w))
+
+    def run(self, words: torch.Tensor):
+        """words: 1-D int32, the linear buffer's first N_STREAMS * S_w
+        words (``prep``'s geometry) on their device → as ``run_t``."""
+        need = N_STREAMS * self.s_w
+        if words.dim() != 1 or words.shape[0] < need:
+            raise ValueError(f"expected at least {need} linear words, got "
+                             f"{tuple(words.shape)}")
+        return self.run2d(words[:need].reshape(N_STREAMS, self.s_w))
+
+    @staticmethod
+    def _counted(bm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return torch.count_nonzero(bm).to(torch.int32).reshape(1), bm
+
     def packed_t(self, w2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """→ (total int32 [1]: nonzero bitmap words, bm) on w2d's device."""
-        bm, _n, _conv = self.run_t(w2d)
-        return torch.count_nonzero(bm).to(torch.int32).reshape(1), bm
+        return self._counted(self.run_t(w2d)[0])
+
+    def packed(self, words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``packed_t`` for linear words (see ``run``)."""
+        return self._counted(self.run(words)[0])
 
     # -- host decode -------------------------------------------------------
 

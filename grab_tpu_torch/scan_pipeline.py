@@ -29,6 +29,10 @@ device and their decoded flags unioned on the host:
   * dfa: any other automaton of at most 2048 states, by the last-resort
     multi-stream walk (ops/dfa_scan.py, plain PyTorch).
 
+``resolve_devices`` reads the device setting (one device, every
+visible card, or a list of shard devices); ``DeviceScanner.replica``
+puts a built plan on another shard device for parallel/sharded.py.
+
 ``CorpusPipeline`` is the reference's, unchanged: its one-deep double
 buffering overlaps host packing of the next batch with the device's
 upload and scan of this one.
@@ -36,6 +40,7 @@ upload and scan of this one.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -64,28 +69,46 @@ MIN_STRIDE_BUF = 1 << 20  # smaller buffers take the last-resort walk
 MAX_DEVICE_STATES = 2048  # larger automata have no device form
 
 
-class NotPortedError(ValueError):
-    """The pattern's device plan (or a requested mode) needs a part of
-    the system that is not ported to the GPU yet."""
-
-
 class DeviceUnavailable(RuntimeError):
     """The CUDA device was asked for and torch cannot see one."""
 
 
-def resolve_device(device: str) -> torch.device:
-    """'cuda' or 'cpu' → torch.device; 'cuda' without a visible card
-    raises instead of running on the CPU."""
+def resolve_device(device) -> torch.device:
+    """'cuda', 'cpu' or one indexed device ('cuda:0') → torch.device; a
+    CUDA device without a visible card raises instead of running on the
+    CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise DeviceUnavailable(
-                "device 'cuda' requested but torch.cuda.is_available() is "
+                f"device {str(device)!r} requested but torch.cuda.is_available() is "
                 "false (use GRAB_TPU_TORCH_DEVICE=cpu to scan on the CPU)"
+            )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise DeviceUnavailable(
+                f"device {str(device)!r} requested but only "
+                f"{torch.cuda.device_count()} CUDA device(s) are visible"
             )
     elif dev.type != "cpu":
         raise ValueError(f"unsupported scan device {device!r}")
     return dev
+
+
+def resolve_devices(spec: str) -> List[torch.device]:
+    """The shard devices a device setting names, in order: 'cuda' is
+    every visible CUDA device, 'cpu' is one CPU device, and a
+    comma-separated list ('cuda:0,cuda:1', 'cpu,cpu,cpu') names them one
+    by one and may repeat a device (several lanes on it). A CUDA entry
+    without a visible card raises DeviceUnavailable."""
+    parts = [p.strip() for p in str(spec).split(",")]
+    if len(parts) == 1:
+        dev = resolve_device(parts[0])
+        if dev.type == "cuda" and dev.index is None:
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [dev]
+    if not all(parts):
+        raise ValueError(f"empty entry in the scan device list {spec!r}")
+    return [resolve_device(p) for p in parts]
 
 
 def plan_refusal(cp) -> Optional[str]:
@@ -161,13 +184,17 @@ class _StrideSeqMember:
     tighter candidate set than prefix-sequence starts; the host replay
     is the same. It consumes the buffer born in the walk's stream-major
     layout (``prep_t``): a second upload beside the linear words when
-    word members share the batch, the only upload otherwise."""
+    word members share the batch, the only upload otherwise. A caller
+    with the linear words alone uses ``packed``, which relayouts them on
+    the device."""
 
     wants_transposed = True
 
     def __init__(self, dfa, max_len, buf_size: int):
         self.sc = StrideDfaScanner(dfa, max_len, buf_size)
         assert self.sc.window_mode  # bounded patterns only (single pass)
+        self.rows = buf_size // (4 * LANES)
+        self.need_w = N_STREAMS * self.sc.stride // 4
 
     @property
     def s_w(self) -> int:
@@ -178,6 +205,18 @@ class _StrideSeqMember:
 
     def packed_t(self, w2d_t: torch.Tensor):
         return self.sc.packed_t(w2d_t)
+
+    def packed(self, words2d: torch.Tensor):
+        """The shared-upload contract, for a caller without a transposed
+        buffer: the linear words int32 [rows + PAD_ROWS, 128] on their
+        device, cut to the buffer and zero-padded to the walk's
+        geometry, relayouted on the device (ops/stridedfa.py
+        stride_transpose)."""
+        words = words2d[: self.rows].reshape(-1)
+        pad = self.need_w - words.shape[0]
+        if pad > 0:
+            words = torch.cat([words, words.new_zeros(pad)])
+        return self.sc.packed(words)
 
     def flags_np(self, bm, n_blocks: int) -> np.ndarray:
         return self.sc.flags_np(np.asarray(bm).reshape(-1, LANES), n_blocks)
@@ -194,7 +233,7 @@ class DeviceScanner:
         buf_size: Optional[int] = None,
         block: int = CANDIDATE_BLOCK,
         stream_seg: int = 32768,
-        device: str = "cuda",
+        device="cuda",
     ):
         self.device = resolve_device(device)
         on_gpu = self.device.type == "cuda"
@@ -244,7 +283,21 @@ class DeviceScanner:
         sizes = [self._want] if self._linear else []
         if self._stride is not None:
             sizes.append(self._stride.s_w * N_STREAMS * 4)
+        self._sizes = sizes
         self._uploader = _PinnedUploader(sizes, self.device) if on_gpu else None
+        self.payload_pulls = 0  # resolves that pulled the members' payloads
+
+    def replica(self, device) -> "DeviceScanner":
+        """The same plan on another device (or once more on this one):
+        the members and their host tables are shared (their device
+        tables are kept per device), the upload ring and the counters
+        are the replica's own."""
+        other = copy.copy(self)
+        other.device = resolve_device(device)
+        on_gpu = other.device.type == "cuda"
+        other._uploader = _PinnedUploader(self._sizes, other.device) if on_gpu else None
+        other.payload_pulls = 0
+        return other
 
     @staticmethod
     def _alpha_eligible(plan) -> bool:
@@ -347,9 +400,9 @@ class DeviceScanner:
     def submit(self, buf: np.ndarray):
         """Start the scan of one packer buffer; returns (total, payloads,
         ready). On the GPU the uploads, the kernels and the count's copy
-        into pinned host memory are queued asynchronously, so the host
-        goes on packing the next batch; ``ready`` marks the count's
-        arrival (None on the CPU)."""
+        into pinned host memory are queued asynchronously on the
+        device's current stream, so the host goes on packing the next
+        batch; ``ready`` marks the count's arrival (None on the CPU)."""
         want = self._want
         if buf.shape[0] < want:  # caller without the packer's tail
             buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
@@ -375,7 +428,7 @@ class DeviceScanner:
         host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
         host_total.copy_(total, non_blocking=True)
         ready = torch.cuda.Event()
-        ready.record()
+        ready.record(torch.cuda.current_stream(self.device))
         return host_total, payloads, ready
 
     def resolve(self, handles) -> np.ndarray:
@@ -392,6 +445,7 @@ class DeviceScanner:
         flags = np.zeros(nb, dtype=np.int32)
         if int(total) == 0:
             return flags
+        self.payload_pulls += 1
         for m, pk in zip(self.members, payloads):
             np.maximum(flags, m.flags_np(pk.cpu().numpy(), nb), out=flags)
         return flags

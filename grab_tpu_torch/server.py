@@ -1,0 +1,221 @@
+"""Scan server: a long-running daemon with warm device scanners.
+
+The reference is a one-shot CLI; re-running it costs one pcre_compile
+(~µs). Here every process pays for the CUDA context, the kernels' build
+(or load) and, for a -H batch, the scanner's tables before the first
+byte is scanned, so production serving keeps one process alive:
+
+    python -m grab_tpu_torch.server /tmp/tpugrep.sock   # start daemon
+    tpugrep --via /tmp/tpugrep.sock -r <regex> <path>   # fast client
+
+Protocol (unix stream socket):
+    request:  one JSON line {"argv": [...]}
+    response: length-prefixed frames — [u32 len][payload]... for stdout
+              bytes, [u32 0][u32 exit_code] to finish; stderr text
+              travels as frames tagged by a leading 0x01 byte (stdout
+              frames lead with 0x00).
+
+Device scanners (tables, upload rings, streams) are cached across
+requests keyed by (patterns, mode, buffer size, device setting,
+effective shards); the patterns are compiled again for every request,
+and output flags are per-request. The scan device is the server
+process's (GRAB_TPU_TORCH_DEVICE, default cuda).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import struct
+import sys
+from typing import Dict, List
+
+from grab_tpu_torch import cli as cli_mod
+from grab_tpu_torch.engine import Engine, EngineConfig, effective_shards
+
+
+class _EngineCache:
+    def __init__(self):
+        self._scanners: Dict[tuple, object] = {}
+
+    def engine_for(self, patterns: List[bytes], cfg: EngineConfig) -> Engine:
+        # shard count and devices are part of the scanner's identity: a
+        # 1-shard scanner must not serve a later -n N request
+        key = (
+            tuple(patterns),
+            cfg.mode,
+            cfg.scan_buf_size,
+            cfg.device,
+            effective_shards(cfg),
+        )
+        eng = Engine(patterns, cfg, scanner=self._scanners.get(key))
+        if eng._scanner is not None:
+            self._scanners[key] = eng._scanner
+        return eng
+
+
+def _handle(conn: socket.socket, cache: _EngineCache):
+    f = conn.makefile("rb")
+    line = f.readline()
+    if not line:
+        return
+    try:
+        argv = json.loads(line)["argv"]
+        if not isinstance(argv, list) or not all(isinstance(a, str) for a in argv):
+            raise ValueError("argv must be a list of strings")
+    except (ValueError, KeyError, TypeError):
+        conn.sendall(struct.pack("!I", 0) + struct.pack("!I", 255))
+        return
+
+    def send_frame(tag: int, payload: bytes):
+        conn.sendall(struct.pack("!I", len(payload) + 1) + bytes([tag]) + payload)
+
+    class SockWriter:
+        def __init__(self, tag):
+            self.tag = tag
+
+        def write(self, data):
+            if isinstance(data, str):
+                data = data.encode("utf-8", "surrogateescape")
+            if data:
+                send_frame(self.tag, data)
+            return len(data)
+
+        def flush(self):
+            pass
+
+        def isatty(self):
+            return False
+
+    out_writer = SockWriter(0)
+    err_writer = SockWriter(1)
+
+    # streams are passed straight into cli.main — no process-global
+    # sys.stdout/sys.stderr swapping, so in-process test clients can't
+    # race on the globals
+    try:
+        rc = _run_with_cache(argv, cache, out_writer, err_writer)
+    except (BrokenPipeError, ConnectionResetError):
+        raise
+    except Exception as e:
+        err_writer.write(f"tpugrep-server: {e}\n")
+        rc = 255
+    conn.sendall(struct.pack("!I", 0) + struct.pack("!I", rc & 0xFF))
+
+
+def _run_with_cache(argv: List[str], cache: _EngineCache, out, err) -> int:
+    """cli.main with the server's scanner cache injected (no module
+    globals touched)."""
+
+    def cached_engine(patterns, cfg):
+        return cache.engine_for(
+            [p if isinstance(p, bytes) else p.encode() for p in patterns], cfg
+        )
+
+    if argv[:1] == ["--via"]:
+        print("tpugrep-server: --via inside a request", file=err)
+        return 255
+    return cli_mod.main(argv, out=out, err=err, engine_factory=cached_engine)
+
+
+def serve(sock_path: str, warm: bool = True):
+    if warm:
+        _warm()
+    if os.path.exists(sock_path):
+        os.unlink(sock_path)
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    # bind under a temp name and rename only after listen(): clients
+    # poll for the path, and a connect between bind and listen gets
+    # ECONNREFUSED — the advertised path must always be accept-ready
+    tmp = sock_path + ".tmp"
+    if os.path.exists(tmp):
+        os.unlink(tmp)
+    srv.bind(tmp)
+    srv.listen(8)
+    os.rename(tmp, sock_path)
+    print(f"tpugrep-server: listening on {sock_path}", file=sys.stderr)
+    cache = _EngineCache()
+    while True:
+        conn, _ = srv.accept()
+        try:
+            _handle(conn, cache)
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+        finally:
+            conn.close()
+
+
+def _warm():
+    """Build and load the kernel library and launch the core-word kernel
+    for the standard shapes on every CUDA shard device, so the first
+    request is fast. A kernel that does not build or launch stops the
+    server's start: every request would fail on it. Nothing to warm on
+    the CPU."""
+    import torch
+
+    from grab_tpu_torch.ops.corewords import LANES, PAD_ROWS, CoreWordScanner
+    from grab_tpu_torch.scan_pipeline import resolve_devices
+
+    setting = EngineConfig().device  # the process's scan device
+    if setting == "none":
+        return
+    rows = (32 << 20) // 512
+    for dev in dict.fromkeys(resolve_devices(setting)):
+        if dev.type != "cuda":
+            continue
+        words2d = torch.zeros((rows + PAD_ROWS, LANES), dtype=torch.int32, device=dev)
+        # the common production shapes: single long literal (unmasked),
+        # single short literal (masked 2-word), a compare bucket of 16
+        for lits in (
+            [b"warmupwarm"],
+            [b"warm"],
+            [b"warmup%02d" % i for i in range(16)],
+        ):
+            CoreWordScanner(lits).packed(words2d)
+        torch.cuda.synchronize(dev)
+
+
+def client(sock_path: str, argv: List[str]) -> int:
+    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    conn.connect(sock_path)
+    conn.sendall(json.dumps({"argv": argv}).encode() + b"\n")
+    stdout = sys.stdout.buffer
+    rc = 0
+    buf = b""
+
+    def recv_exact(n):
+        nonlocal buf
+        while len(buf) < n:
+            chunk = conn.recv(65536)
+            if not chunk:
+                raise ConnectionError("server closed early")
+            buf += chunk
+        out, buf = buf[:n], buf[n:]
+        return out
+
+    try:
+        while True:
+            (length,) = struct.unpack("!I", recv_exact(4))
+            if length == 0:
+                (rc,) = struct.unpack("!I", recv_exact(4))
+                break
+            frame = recv_exact(length)
+            tag, payload = frame[0], frame[1:]
+            if tag == 0:
+                stdout.write(payload)
+            else:
+                err_buf = getattr(sys.stderr, "buffer", None)
+                if err_buf is not None:
+                    err_buf.write(payload)
+                else:  # captured stderr (tests) has no .buffer
+                    sys.stderr.write(payload.decode("utf-8", "replace"))
+        stdout.flush()
+        sys.stderr.flush()
+    finally:
+        conn.close()
+    return rc
+
+
+if __name__ == "__main__":
+    serve(sys.argv[1] if len(sys.argv) > 1 else "/tmp/tpugrep.sock")

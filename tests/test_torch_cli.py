@@ -5,9 +5,10 @@ Stdout and exit code must be byte-identical to ``grab_tpu.cli.main``
 tests/test_conformance.py plus a planted corpus whose files are larger
 than the 2 MiB CPU scan buffer, so they span batches and their halos.
 The port runs with GRAB_TPU_TORCH_DEVICE=cpu: the kernels' plain
-PyTorch versions. Every single-device plan is served; the modes still
-out of the port (-n N, multi-host, --via) must exit 255 with one stderr
-line naming their ROADMAP item, never a quiet host replay.
+PyTorch versions. Every single-device plan is served, -n N caps at the
+shard devices and prints what -n 1 prints, and --via goes to the scan
+server; multi-host, still out of the port, must exit 255 with one
+stderr line naming its ROADMAP item, never a quiet host replay.
 """
 
 import io
@@ -206,7 +207,7 @@ def test_device_scanner_flags_match_reference(planted):
 
 @pytest.mark.parametrize(
     "argv,item",
-    [  # item: the ROADMAP item; A6-A9 have landed and are served, A10+ refused
+    [  # item: the ROADMAP item; A6-A10 have landed and are served, A11 refused
         ([".{0,2}[0-9]{11}"], "ROADMAP A7"),  # alphabet-run plan
         # no stride plan (1001 states x 6 classes): the last-resort walk
         ([".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"], "ROADMAP A6"),
@@ -218,12 +219,21 @@ def test_device_scanner_flags_match_reference(planted):
         (["--hosts", "2", "--pid", "0", "needle"], "ROADMAP A11"),
     ],
 )
-def test_out_of_slice_refused(corpus, tmp_path, argv, item):
+def test_out_of_slice_refused(corpus, tmp_path, monkeypatch, argv, item):
     if argv[-1] == "@needle+seq":
         pats = tmp_path / "pats.txt"
         pats.write_bytes(b"needle\n[0-9]{3}[a-z]{2}\n")
         argv = argv[:-1] + [str(pats)]
     argv = argv[:-1] + ["-r", "-O", argv[-1], str(corpus)]
+    if item == "ROADMAP A10":
+        # in the slice now: -n N over the shard devices, as the reference
+        # over its N devices; on one device it caps and still runs
+        want = _run(ref_cli, argv)[:2]
+        for devices in ("cpu,cpu,cpu,cpu", "cpu"):
+            monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", devices)
+            assert _run(port_cli, argv)[:2] == want and want[0] == 0
+        assert want[1] or "needle" not in argv  # the corpus holds no 11-digit run
+        return
     rc, out, err = _run(port_cli, argv)
     if item in ("ROADMAP A6", "ROADMAP A7", "ROADMAP A8"):
         # in the slice now: served, byte for byte as the reference
@@ -236,9 +246,15 @@ def test_out_of_slice_refused(corpus, tmp_path, argv, item):
     assert len(lines) == 1 and item in lines[0] and "not ported" in lines[0]
 
 
-def test_via_and_big_batches_refused(corpus, tmp_path):
-    rc, _, err = _run(port_cli, ["--via", "/tmp/sock", "-r", "needle", str(corpus)])
-    assert rc == 255 and "ROADMAP A12" in err
+def test_via_and_big_batches_refused(corpus, tmp_path, monkeypatch):
+    # --via is served now (ROADMAP A12): it goes to the scan server, and
+    # without one listening the connect fails as the reference's does
+    with pytest.raises(OSError):
+        _run(port_cli, ["--via", str(tmp_path / "no.sock"), "-r", "needle", str(corpus)])
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")  # multi-host by environment: refused
+    rc, out, err = _run(port_cli, ["-r", "needle", str(corpus)])
+    assert rc == 255 and out == b"" and "ROADMAP A11" in err
+    monkeypatch.delenv("JAX_NUM_PROCESSES")
     # a 20-literal batch is served now (two compare buckets, ROADMAP A9)
     pats = tmp_path / "many.txt"
     pats.write_bytes(b"\n".join([b"lit%02d" % i for i in range(19)] + [b"needle"]))

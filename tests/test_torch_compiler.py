@@ -143,6 +143,22 @@ for p in (pats, [rb".{0,2}[0-9]{11}"]):
     eng = Engine(p, EngineConfig(device="cpu"))
     eng.scan_data("f", b"abc longliteral03 needle 123ab x91827364550x\n" * 500, out.append)
     assert out, p
+import grab_tpu_torch.ops.bloom, grab_tpu_torch.parallel.scan_step
+import grab_tpu_torch.parallel.sharded, grab_tpu_torch.server
+import numpy as np, torch
+sc = grab_tpu_torch.ops.bloom.BloomWordScanner([b"needleXY", b"longliteral03"])
+words = np.zeros((40, 128), "<i4")
+words.reshape(-1).view(np.uint8)[1001:1009] = np.frombuffer(b"needleXY", np.uint8)
+total, packed = sc.packed(torch.from_numpy(words))
+assert int(total) == 1 and sc.flags_np(packed.numpy(), 32)[1] == 1
+out = []
+eng = Engine(b"needle", EngineConfig(device="cpu,cpu", n_shards=2, scan_buf_size=64 << 10))
+assert type(eng._get_scanner()).__name__ == "ShardedScanner"
+eng.scan_data("f", b"abc needle xyz\n" * 20000, out.append)
+assert b"".join(out).count(b"needle") >= 20000, len(out)
+cache = grab_tpu_torch.server._EngineCache()
+e1 = cache.engine_for([b"needle"], EngineConfig(device="cpu"))
+assert cache.engine_for([b"needle"], EngineConfig(device="cpu"))._scanner is e1._scanner
 leaked = [m for m in sys.modules
           if m.split(".")[0] == "grab_tpu" or (m.split(".")[0] == "jax" and sys.modules[m] is not None)]
 assert not leaked, leaked

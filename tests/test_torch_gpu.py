@@ -415,3 +415,207 @@ def test_device_scanner_ensembles_match_cpu(cuda, monkeypatch, plan, no_fused):
         want = cpu.resolve(cpu.submit(b))
         assert g.dtype == want.dtype and (g == want).all()
     assert got[0].any() and not got[1].any()
+
+
+# -- stride transpose (B7), bloom (B8), the group submit and the server ------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_w", [32, 128, 512, 640])
+def test_stride_transpose_kernel_matches_plain(cuda, s_w):
+    from grab_tpu_torch.ops import stridedfa as sd
+
+    rng = np.random.default_rng(s_w)
+    a = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, size=(sd.N_STREAMS, s_w), dtype=np.int64)
+        .astype(np.int32)).to(cuda)
+    before = sd.stride_transpose.launches
+    got = sd.stride_transpose(a, s_w)
+    assert sd.stride_transpose.launches == before + 1
+    want = sd.stride_transpose_torch(a, s_w)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    with pytest.raises(ValueError):  # not contiguous
+        sd.stride_transpose(a.t().contiguous().t(), s_w)
+    with pytest.raises(ValueError):  # s_w not a multiple of 32
+        sd.stride_transpose(a[:, :31].contiguous(), 31)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", [rb".{0,2}[a-z ]{11}", rb".{0,2}(?:[0-9a-zA-Z]{4})+"])
+def test_stride_scanner_linear_entries_match_transposed(cuda, pattern):
+    """run(words) on the linear upload == run_t(prep_t(buf)), window
+    mode and threading, with hits across stream boundaries."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    cp = compile_multi([pattern])
+    sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, 2 << 20)
+    rng = np.random.default_rng(4)
+    buf = rng.choice(np.frombuffer(b" -_=+()\n", np.uint8), size=(2 << 20) - 100)
+    for s in range(3, 16000, 211):
+        at = s * sc.stride - 5
+        buf[at : at + 20] = np.frombuffer(b"hello world a1B2c3D4", np.uint8)
+    before = sd.stride_transpose.launches
+    bm, n, conv = sc.run(torch.from_numpy(sc.prep(buf).copy()).to(cuda))
+    assert sd.stride_transpose.launches == before + 1
+    bm_t, n_t, conv_t = sc.run_t(torch.from_numpy(sc.prep_t(buf)).to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(bm, bm_t) and (int(n), bool(conv)) == (int(n_t), bool(conv_t))
+    assert int(torch.count_nonzero(bm)) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 5, 100, 1000])
+def test_bloom_kernel_matches_plain(cuda, k):
+    from grab_tpu_torch.ops import bloom as bl
+
+    lits = _long_literals(k, 50 + k)
+    tests = bl.BloomWordTests(lits)
+    for kind in ("text", "binary", "zeros"):
+        w = torch.from_numpy(_words(kind, lits, k)).to(cuda)
+        before = bl.bloom_word_flags.launches
+        got = bl.bloom_word_flags(w, tests)
+        assert bl.bloom_word_flags.launches == before + 1
+        bm = bl.bloom_bitmap_torch(w, tests.tbl, tests.levels)
+        want = cw.packed_block_flags(bm) + (bm,)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), (k, kind)
+        assert int(got[0].item()) > 0
+    sc = bl.BloomWordScanner(lits)
+    total, packed = sc.packed(w)
+    flags = sc.flags_np(packed.cpu().numpy(), N // BLOCK)
+    assert flags[0] == 1  # _words plants the first literal at offset 0
+
+
+GROUP_PLANS = {
+    "literal": [b"l[imn]nus"],
+    "class_seq, stride member": [rb"[A-Z]{6}[0-9]{6}"],
+    "gdfa, threading": [rb".{0,2}(?:[0-9a-zA-Z]{4})+"],
+    "alpha": [rb".{0,2}[0-9]{11}"],
+    "fused + stride member": ENSEMBLE_PLANS["fused + stride member"],
+}
+
+
+def _group_devices():
+    """Every visible card as one lane each, or two lanes on the one."""
+    n = torch.cuda.device_count()
+    return "cuda" if n > 1 else "cuda:0,cuda:0", max(n, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", list(GROUP_PLANS))
+def test_sharded_scanner_matches_cpu(cuda, monkeypatch, plan):
+    """Groups over the shard devices (two lanes on one card where there
+    is only one), two groups in flight as CorpusPipeline keeps them, a
+    short last group and a clean one: flags equal the CPU scanner's in
+    submit order, and a clean group pulls no payload."""
+    from grab_tpu_torch.parallel.sharded import ShardedScanner
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    for var in ("GRAB_TPU_NO_FUSED", "GRAB_TPU_SEQDFA"):
+        monkeypatch.delenv(var, raising=False)
+    devices, n = _group_devices()
+    buf_size = 1 << 20
+    cp = compile_multi(GROUP_PLANS[plan])
+    sh = ShardedScanner(cp, n, buf_size=buf_size, devices=devices)
+    cpu = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    assert sh.group_size == n and sh.mode == cpu.mode
+    assert len({id(s) for s in sh._streams}) == n
+    rng = np.random.default_rng(13)
+    bufs = []
+    for i in range(2 * n + 1):
+        b = rng.choice(np.frombuffer(b" -_=+()\nghijkm", np.uint8), size=buf_size + 4096)
+        b[buf_size:] = 0
+        for pos in (100 + i, 4093, buf_size // 3, buf_size - 60):
+            for k, s in enumerate((b"linus", b"QWERTY123456", b"a1B2c3D4", b"x91827364550x",
+                                   b"123ab", b"needle_3")):
+                at = min(pos + 17 * k, buf_size - len(s))
+                b[at : at + len(s)] = np.frombuffer(s, np.uint8)
+        bufs.append(b)
+    for b in bufs[n : 2 * n]:
+        b[:buf_size] = ord("-")  # the second group is clean
+    groups = [bufs[:n], bufs[n : 2 * n], bufs[2 * n :]]
+    pending = [sh.submit_group(groups[0])]
+    got, pulls = [], []
+    for g in groups[1:]:
+        pending.append(sh.submit_group(g))
+        got += sh.resolve_group(pending.pop(0))
+        pulls.append(sh.payload_pulls)
+    got += sh.resolve_group(pending.pop(0))
+    pulls.append(sh.payload_pulls)
+    assert pulls == [n, n, n + 1]  # the clean group pulled nothing
+    assert len(got) == len(bufs)
+    for i, (g, b) in enumerate(zip(got, bufs)):
+        want = cpu.resolve(cpu.submit(b))
+        assert g.dtype == want.dtype and (g == want).all(), i
+        assert bool(g.any()) == (not n <= i < 2 * n)
+
+
+@pytest.mark.gpu
+def test_cli_group_stdout_matches_single(cuda, monkeypatch, tmp_path):
+    """-n N through the CLI on the card(s) prints what -n 1 prints."""
+    import io
+
+    from grab_tpu_torch import cli
+
+    rng = np.random.default_rng(17)
+    (tmp_path / "sub").mkdir()
+    for i in range(5):
+        n = (3 << 20) + 70_001 * i
+        data = rng.integers(97, 123, size=n, dtype=np.uint8)
+        data[::97] = 0x0A
+        for p in range(500, n - 40, 300_007):
+            data[p : p + 8] = np.frombuffer(b"needle%02d" % i, np.uint8)
+        (tmp_path / ("sub" if i % 2 else ".") / f"f{i}.txt").write_bytes(data.tobytes())
+    devices, n = _group_devices()
+
+    def run(argv, dev):
+        monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", dev)
+        out, err = io.BytesIO(), io.StringIO()
+        assert cli.main(argv, out=out, err=err) == 0, err.getvalue()
+        return out.getvalue()
+
+    # -n N quarters the chunk as -L -L does: the same flush boundaries
+    for pat in ("needle0[0-9]", "[a-z]eedle[0-9]{2}"):
+        one = run(["-L", "-L", "-r", "-O", pat, str(tmp_path)], "cuda:0")
+        many = run(["-n", str(n), "-r", "-O", pat, str(tmp_path)], devices)
+        capped = run(["-n", "64", "-r", "-O", pat, str(tmp_path)], "cuda:0")
+        assert one and many == one and capped == one
+
+
+@pytest.mark.gpu
+def test_server_warm_start_and_round_trip(cuda, tmp_path):
+    """The server as a subprocess on the card: the warm-up builds and
+    launches the kernels before the socket appears; a request's stdout
+    equals the direct CLI's."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    (tmp_path / "f.txt").write_bytes(b"abc needleXY def\n" * 4000)
+    sock = str(tmp_path / "s.sock")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("GRAB_TPU_TORCH_DEVICE", None)
+    srv = subprocess.Popen([sys.executable, "-m", "grab_tpu_torch.server", sock], env=env,
+                           cwd=repo, stderr=subprocess.PIPE)
+    try:
+        for _ in range(1200):
+            if os.path.exists(sock) or srv.poll() is not None:
+                break
+            time.sleep(0.25)
+        assert srv.poll() is None and os.path.exists(sock), srv.stderr.read().decode()[-2000:]
+        argv = ["-r", "-O", "needleXY", str(tmp_path)]
+        via = subprocess.run([sys.executable, "-m", "grab_tpu_torch.cli", "--via", sock] + argv,
+                             env=env, cwd=repo, capture_output=True, timeout=300)
+        direct = subprocess.run([sys.executable, "-m", "grab_tpu_torch.cli"] + argv,
+                                env=env, cwd=repo, capture_output=True, timeout=300)
+        assert via.returncode == direct.returncode == 0
+        assert via.stdout == direct.stdout and via.stdout.count(b"\n") == 8000
+    finally:
+        srv.terminate()
+        srv.wait(timeout=30)

@@ -351,3 +351,107 @@ def test_plan_refusal_names_item(pattern, buf_size, item):
     assert plan_refusal(no_form) is not None
     with pytest.raises(ValueError, match="no device-scannable form"):
         DeviceScanner(no_form, buf_size=buf_size, device="cpu")
+
+
+# -- the device-side relayout and the linear-words entries ---------------------
+
+
+@pytest.mark.parametrize("s_w", [32, 128, 640])
+def test_stride_transpose_matches_reference(s_w):
+    """stride_transpose == the reference's tiled relayout (interpret
+    mode) == the definition out[g*128 + r, c] = a[r*128 + c, g]."""
+    rng = np.random.default_rng(s_w)
+    a = rng.integers(-(1 << 31), 1 << 31, size=(N_STREAMS, s_w), dtype=np.int64).astype(np.int32)
+    want = np.asarray(ref.stride_transpose(jnp.asarray(a), s_w, interpret=True))
+    got = port.stride_transpose(torch.from_numpy(a), s_w)
+    assert got.dtype == torch.int32 and got.shape == (s_w * STREAM_ROWS, LANES)
+    assert got.is_contiguous() and np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy().reshape(s_w, N_STREAMS), a.T)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        lambda a: (a[:, :31], 31),  # s_w not a multiple of 32
+        lambda a: (a[:100], 32),  # not N_STREAMS rows
+        lambda a: (a.to(torch.int64), 32),  # wrong dtype
+        lambda a: (a, 64),  # s_w does not match the shape
+    ],
+)
+def test_stride_transpose_rejects_bad_geometry(bad):
+    a = torch.zeros((N_STREAMS, 32), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        port.stride_transpose(*bad(a))
+
+
+def _planted(buf_size, plants, fill=ord("x"), tail=0):
+    buf = np.full(buf_size - tail, fill, dtype=np.uint8)
+    for pos, s in plants:
+        n = min(len(s), buf.shape[0] - pos)
+        buf[pos : pos + n] = np.frombuffer(s[:n], dtype=np.uint8)
+    return buf
+
+
+LINEAR_CASES = [  # (pattern, buffer size, planted hits across stream boundaries)
+    (rb"[0-9]{5}", N_STREAMS * 32, [(62, b"12345"), (4000, b"12345"), (100_001, b"12345")]),
+    (rb".{0,2}[a-z ]{11}", 2 << 20, [(128 * 7 - 5, b"hello world"), (300_000, b"abc def ghij")]),
+    (rb"a[0-9]*b", N_STREAMS * 32, [(50, b"a" + b"7" * 26 + b"b"), (9000, b"a" + b"7" * 599 + b"b")]),
+]
+
+
+@pytest.mark.parametrize("pattern,buf_size,plants", LINEAR_CASES,
+                         ids=[c[0].decode() for c in LINEAR_CASES])
+def test_run_on_linear_words_identical(pattern, buf_size, plants):
+    """run(words) on the linear buffer == run_t(prep_t(buf)) == the
+    reference's traceable_run(words), window mode and threading; a short
+    buffer is zero-padded by prep."""
+    rs, ps = _scanners(pattern, buf_size)
+    fill = ord(" ") if pattern == rb"a[0-9]*b" else ord("X")
+    buf = _planted(buf_size, plants, fill=fill, tail=777)
+    words = ps.prep(buf)
+    assert np.array_equal(words, rs.prep(buf))
+    bm, n, conv = ps.run(torch.from_numpy(words.copy()))
+    bm_t, n_t, conv_t = ps.run_t(torch.from_numpy(ps.prep_t(buf)))
+    assert torch.equal(bm, bm_t) and (int(n), bool(conv)) == (int(n_t), bool(conv_t))
+    bm_r, n_r, conv_r = rs.traceable_run(jnp.asarray(words))
+    assert np.array_equal(bm.numpy(), np.asarray(bm_r))
+    assert (int(n), bool(conv)) == (int(n_r), bool(conv_r))
+    a2 = torch.from_numpy(words.copy()).reshape(N_STREAMS, ps.s_w)
+    assert torch.equal(ps.run2d(a2)[0], bm)
+    total, bm_p = ps.packed(torch.from_numpy(words.copy()))
+    assert int(total) == int(torch.count_nonzero(bm)) > 0 and torch.equal(bm_p, bm)
+    with pytest.raises(ValueError):
+        ps.run(torch.from_numpy(words[:-1].copy()))
+
+
+@pytest.mark.parametrize("buf_size", [2 << 20, (2 << 20) + (64 << 10)])
+def test_stride_seq_member_packed_matches_reference(buf_size):
+    """_StrideSeqMember.packed on the shared linear upload (the words
+    with their pad rows) gives the reference member's total, bitmap and
+    flags, and the same as packed_t on the born-transposed buffer; the
+    second size is cut and zero-padded to the walk's geometry."""
+    from grab_tpu.scan_pipeline import _StrideSeqMember as RefMember
+    from grab_tpu_torch.scan_pipeline import _StrideSeqMember
+
+    pats = [rb"[A-Z]{6}[0-9]{6}", rb"[0-9]{3}[a-z]{2}"]
+    rc, pc = ref_compile(pats), compile_multi(pats)
+    rm = RefMember(rc.seq_dfa, rc.seq_max_len, buf_size, True)
+    pm = _StrideSeqMember(pc.seq_dfa, pc.seq_max_len, buf_size)
+    assert (rm.rows, rm.need_w) == (pm.rows, pm.need_w)
+    stride = pm.sc.stride
+    plants = [(stride * 9 - 4, b"QWERTY123456"), (stride * 100 - 2, b"123ab"),
+              (500_000, b"ABCDEF000001"), (buf_size - 5, b"999xy")]
+    buf = _planted(buf_size, plants, fill=ord("."))
+    words2d = np.zeros((buf_size // 512 + 8, LANES), dtype="<i4")
+    words2d[: buf_size // 512] = buf.view("<i4").reshape(-1, LANES)
+    t_r, pk_r = rm.packed(jnp.asarray(words2d))
+    t_p, pk_p = pm.packed(torch.from_numpy(words2d))
+    assert int(t_p) == int(t_r) > 0
+    assert np.array_equal(pk_p.numpy().reshape(-1), np.asarray(pk_r))
+    t_t, pk_t = pm.packed_t(torch.from_numpy(pm.prep_t(buf)))
+    assert int(t_t) == int(t_p) and torch.equal(pk_t, pk_p)
+    nb = buf_size // 512
+    flags = pm.flags_np(pk_p.numpy(), nb)
+    assert np.array_equal(flags, rm.flags_np(np.asarray(pk_r), nb))
+    for pos, _s in plants[:3]:
+        assert flags[pos // 512] == 1 or flags[(pos + 11) // 512] == 1
