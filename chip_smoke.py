@@ -23,11 +23,15 @@ card, and fails (non-zero exit, no result line) if any phase fails:
        - B2 strided-DFA walk (stream-major [512 * 128, 128], stride
          2048 B) for a plan of every family the planner emits (run k=4,
          k=2, k=1, runp, cls k=4 and k=2, 16-bit run and cls), start and
-         random entries, bitmap and exit states; then the scanner on the
-         card against the plain path: the boundary-window pass, the
-         threading fixpoint (runs across stream boundaries, one longer
-         than a stride; the same number of walks) and the round-cap
-         fallback;
+         random entries, bitmap and exit states, and an automaton that
+         never synchronises (``Q(?:[a-z]{2})*Q`` over one Q per stream
+         and lowercase letters: every segment's guess is wrong), also at
+         77 and 5 word steps (not a multiple of the segment count); the
+         words the kernel's fix-up re-walked, per case; then the scanner
+         on the card against the plain path: the boundary-window pass,
+         the threading fixpoint (runs across stream boundaries, one
+         longer than a stride, the non-synchronising automaton; the same
+         number of walks) and the round-cap fallback;
        - B3 alphabet runs: coarse runs of 1, 2, 4 and 8 words and fine
          runs of 1, 2 and 4 bytes, ranges with byte 0 (the pad rows are
          members) and with bytes >= 0x80, runs planted across row,
@@ -36,7 +40,9 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          (remainder groups of arity 1 and 3 beside up to 10 full groups),
          needles at every phase, and a buffer of NUL words;
        - B6 fused ensemble: 100 long literals + 1 sequence, 60 short +
-         40 long literals + 3 sequences, and one bucket + 3 sequences;
+         40 long literals + 3 sequences, one bucket + 3 sequences, and the
+         ensemble DeviceScanner builds for the 100-literal + 10-regex
+         batch (``batch4``);
        - the last-resort DFA walk (plain PyTorch on both devices) on
          the card against itself on the CPU at 2 MiB;
        - B7 stride transpose ([16384, 512], [16384, 32], [16384, 640]
@@ -120,7 +126,7 @@ BUF = 32 << 20  # the device scan buffer of the main path
 ROWS = BUF // 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes (NVIDIA H100 white paper)
-SLEEP_CYCLES = 40_000_000  # ~20 ms at 2 GHz: covers queueing 40 launches
+SLEEP_CYCLES = 100_000_000  # ~50 ms at 2 GHz: covers queueing 40 launches on a busy host
 
 LITERAL_SETS = {
     "linus": [b"linus"],
@@ -138,8 +144,11 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.time() - _T0:5.0f}s] {msg}", flush=True)
 
 
 def smi(query: str) -> str:
@@ -630,12 +639,29 @@ STRIDE_PLANS = [  # (pattern, expected plan)
     (rb"[0-9]{1500}", ("cls16", 1)),
 ]
 STRIDE_ALPHABET = b"0123456789abcdefgxyz acegikmoqsuwy \n-AZ\x80\xff"
+# an automaton that never synchronises inside a segment: after a Q the
+# state carries the parity of the letters since, which a guess walked
+# from the start state never has
+NOSYNC = (rb"Q(?:[a-z]{2})*Q", ("run", 2))
 
 
-def phase_stride(torch, np, rng, sm_count, sm_clock_mhz):
+def nosync_words(np, rng, s_w: int):
+    """Stream-major words of one Q per stream followed by lowercase
+    letters only."""
+    raw = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8), size=(16384, 4 * s_w))
+    raw[:, 0] = ord("Q")
+    lin = np.ascontiguousarray(raw).reshape(-1).view("<i4").reshape(16384, s_w)
+    return np.ascontiguousarray(lin.T).reshape(s_w * 128, 128)
+
+
+def phase_stride(torch, np, rng, sm_count, sm_clock_mhz, rng5):
     """B2 against its plain walk at the 32 MiB stream-major geometry,
     bit for bit (bitmap and exit states), every plan family, start and
-    random entries; then times and bounds."""
+    random entries, and the words its fix-up re-walked; an automaton
+    that never synchronises (every segment's guess wrong) at 32 MiB and
+    at word-step counts that are not a multiple of the segment count;
+    then times and bounds. The non-synchronising case draws from rng5,
+    so the other cases' and later phases' data stay what they were."""
     from grab_tpu_torch.ops import stridedfa as sd
     from grab_tpu_torch.regex.compiler import compile_multi
 
@@ -651,27 +677,48 @@ def phase_stride(torch, np, rng, sm_count, sm_clock_mhz):
     cycles = sd.link_cycles(dev)
     int32_ops_per_s = sm_count * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
     log(f"walk link latency: {cycles:.1f} SM cycles (dependent IMAD + shared load + AND)")
+    def held(t, label, bufs, rand):
+        """The walk against the plain walk on every buffer, start and
+        random entries → {(buffer, entries): words the fix-up re-walked}."""
+        starts = torch.full((128, 128), t.start, dtype=torch.int32, device=dev)
+        rewalked = {}
+        for dname, w in bufs.items():
+            for ename, e in (("start", starts), ("random", rand)):
+                sd.fixup_words(dev, reset=True)
+                bm, ex = sd.stride_dfa_scan(w, t, e)
+                torch.cuda.synchronize()
+                rewalked[f"{dname}/{ename}"] = sd.fixup_words(dev, reset=True)
+                bm_p, ex_p = sd.stride_dfa_scan_torch(w, t, e)
+                torch.cuda.synchronize()
+                check(torch.equal(bm, bm_p) and torch.equal(ex, ex_p),
+                      f"strided-DFA kernel != plain for {label} ({t.mode}, k={t.k}) "
+                      f"on {dname} data, {ename} entries")
+        log(f"walk == plain, bit for bit: {label} ({t.mode}, k={t.k}) on {'/'.join(bufs)}, "
+            f"start/random entries; words re-walked by the fix-up: {rewalked}")
+        return starts, rewalked
+
     results = []
-    for pat, plan in STRIDE_PLANS:
+    for pat, plan in STRIDE_PLANS + [NOSYNC]:
         dfa = compile_multi([pat]).dfa
         got_plan = sd.stride_plan(dfa)
         check(got_plan == plan, f"{pat!r}: plan {got_plan}, expected {plan}")
         t = sd.StrideDfaTables(dfa, plan)
-        starts = torch.full((128, 128), t.start, dtype=torch.int32, device=dev)
+        nosync = (pat, plan) == NOSYNC
         rand = torch.from_numpy(
-            rng.integers(0, t.n_states, (128, 128), dtype=np.int32)).to(dev)
-        for dname, w in dev_bufs.items():
-            for ename, e in (("start", starts), ("random", rand)):
-                bm, ex = sd.stride_dfa_scan(w, t, e)
-                torch.cuda.synchronize()
-                bm_p, ex_p = sd.stride_dfa_scan_torch(w, t, e)
-                torch.cuda.synchronize()
-                check(torch.equal(bm, bm_p) and torch.equal(ex, ex_p),
-                      f"strided-DFA kernel != plain for {pat!r} ({t.mode}, k={t.k}) "
-                      f"on {dname} data, {ename} entries")
+            (rng5 if nosync else rng).integers(0, t.n_states, (128, 128), dtype=np.int32)).to(dev)
+        bufs = dev_bufs
+        if nosync:
+            bufs = {"Q + lowercase": torch.from_numpy(nosync_words(np, rng5, s_w)).to(dev)}
+            # word-step counts that are not a multiple of the segment count
+            for sw in (77, 5):
+                held(t, f"{pat!r} at s_w={sw}", {f"Q + lowercase, s_w={sw}":
+                     torch.from_numpy(nosync_words(np, rng5, sw)).to(dev),
+                     f"text, s_w={sw}": dev_bufs["text"][: sw * 128]}, rand)
+        starts, rewalked = held(t, repr(pat), bufs, rand)
         name = pat.decode("latin-1")
-        ms = time_cuda(torch, lambda i: sd.stride_dfa_scan(ring[i % 4], t, starts), 20)
-        plain_ms = time_cuda(torch, lambda i: sd.stride_dfa_scan_torch(ring[i % 4], t, starts),
+        ring_p = [bufs[next(iter(bufs))]] * 4 if nosync else ring
+        ms = time_cuda(torch, lambda i: sd.stride_dfa_scan(ring_p[i % 4], t, starts), 20)
+        plain_ms = time_cuda(torch, lambda i: sd.stride_dfa_scan_torch(ring_p[i % 4], t, starts),
                              2, warmup=1)
         in_bytes = BUF + 128 * 128 * 4
         out_bytes = (s_w * 128 // 16) * 128 * 4 + 128 * 128 * 4
@@ -682,19 +729,25 @@ def phase_stride(torch, np, rng, sm_count, sm_clock_mhz):
         links = 4 // t.k
         ops = s_w * sd.N_STREAMS * (4 + (4 - links) + 3 * links + 2)
         ops_ms = ops / int32_ops_per_s * 1e3
-        chain_ms = s_w * links * cycles / (sm_clock_mhz * 1e6) * 1e3
+        # the longest dependent chain: a segment and its warm-up (with
+        # one thread per stream it would be the whole stream)
+        chain_links = sd.chain_links(s_w, t.k)
+        chain_ms = chain_links * cycles / (sm_clock_mhz * 1e6) * 1e3
+        stream_chain_ms = s_w * links * cycles / (sm_clock_mhz * 1e6) * 1e3
         results.append({
             "pattern": name, "mode": t.mode, "k": t.k, "states": t.n_states, "m": t.m,
             "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "copy_ms": copy_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "chain_ms": chain_ms,
-            "link_cycles": cycles, "links_per_stream": s_w * links,
+            "stream_chain_ms": stream_chain_ms, "link_cycles": cycles,
+            "links_per_chain": chain_links, "links_per_stream": s_w * links,
+            "rewalked_words": rewalked,
         })
-        log(f"walk == plain, bit for bit: {name} ({t.mode}, k={t.k}, {t.n_states} states) "
-            f"on text/binary, start/random entries; kernel {ms:.4f} ms, plain "
+        log(f"walk {name} ({t.mode}, k={t.k}, {t.n_states} states): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.2f} ms, d2d copy {copy_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} "
-            f"ms, chain {chain_ms:.4f} ms ({s_w * links} links)")
+            f"ms, chain {chain_ms:.4f} ms ({chain_links} links; a whole stream "
+            f"{stream_chain_ms:.4f} ms)")
     del ring, dev_bufs, dst
     return results
 
@@ -712,9 +765,12 @@ def plant_run(buf, pos: int, span: int):
     buf[pos : pos + span] = np.frombuffer((b"a1B2" * (span // 4 + 1))[:span], np.uint8)
 
 
-def phase_stride_scanner(torch, np, rng):
+def phase_stride_scanner(torch, np, rng, rng5):
     """StrideDfaScanner on the card against the plain path (the same
-    scanner on the CPU): window pass, threading fixpoint, round cap."""
+    scanner on the CPU, whose fixpoint is stride_fixpoint_torch): window
+    pass, the threading fixpoint (the kernel's later walks re-walk only
+    the streams whose entry changed) for (bm, walks, converged), round
+    cap; with the words the kernel's fix-up re-walked."""
     from grab_tpu_torch.ops import stridedfa as sd
     from grab_tpu_torch.regex.compiler import compile_multi
 
@@ -723,25 +779,29 @@ def phase_stride_scanner(torch, np, rng):
 
     def compare(label, pat, buf, rounds=None):
         cp = compile_multi([pat])
-        sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, BUF)
+        sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, buf.size)
         w = sc.prep_t(buf)
         wd = torch.from_numpy(w).to(dev)
+        sd.fixup_words(dev, reset=True)
         bm, n, conv = sc.run_t(wd)
         torch.cuda.synchronize()
+        rewalked = sd.fixup_words(dev, reset=True)
         bm_p, n_p, conv_p = sc.run_t(torch.from_numpy(w))
         check(torch.equal(bm.cpu(), bm_p), f"{label}: bitmap on the card != plain path")
         check((int(n), bool(conv)) == (int(n_p), bool(conv_p)),
               f"{label}: walks/converged {int(n)}/{bool(conv)} != plain {n_p}/{conv_p}")
         if rounds is not None:
             check(rounds(int(n), bool(conv)), f"{label}: unexpected walks {int(n)}, {bool(conv)}")
-        nb = BUF // 512
+        nb = buf.size // 512
         flags = sc.flags_np(bm.cpu().numpy(), nb)
         check(np.array_equal(flags, sc.flags_np(bm_p.numpy(), nb)), f"{label}: flags differ")
         ms = time_cuda(torch, lambda i: sc.run_t(wd), 10)
         out[label] = {"walks": int(n), "converged": bool(conv), "ms": ms,
-                      "flagged_blocks": int(flags.sum()), "window_mode": sc.window_mode}
+                      "flagged_blocks": int(flags.sum()), "window_mode": sc.window_mode,
+                      "rewalked_words": rewalked}
         log(f"scanner on the card == plain path: {label} (walks {int(n)}, converged "
-            f"{bool(conv)}, {int(flags.sum())} flagged blocks, {ms:.4f} ms per 32 MiB)")
+            f"{bool(conv)}, {int(flags.sum())} flagged blocks, {rewalked} words re-walked "
+            f"by the fix-up, {ms:.4f} ms per {buf.size >> 20} MiB)")
         return flags
 
     text = rng.integers(33, 127, size=BUF, dtype=np.uint8)
@@ -766,6 +826,11 @@ def phase_stride_scanner(torch, np, rng):
         digits[pos + 1 : pos + span] = ord("7")
         digits[pos + span] = ord("b")
     compare("fixpoint, a[0-9]*b", rb"a[0-9]*b", digits, rounds=lambda n, c: c and n >= 4)
+    # every segment's guess wrong, in the first walk and the later ones
+    # (8 MiB, a stride of 512 B: the plain fixpoint runs on the host)
+    qbuf = nosync_words(np, rng5, (8 << 20) // sd.N_STREAMS // 4)
+    qlin = np.ascontiguousarray(qbuf.reshape(-1, sd.N_STREAMS).T).reshape(-1).view(np.uint8)
+    compare("fixpoint, " + NOSYNC[0].decode(), NOSYNC[0], qlin, rounds=lambda n, c: c)
     keep = sd.MAX_ROUNDS
     sd.MAX_ROUNDS = 2
     try:
@@ -889,30 +954,49 @@ def phase_xor(torch, np, rng, rate):
 
 
 def fused_sets(np, rng):
-    """{name: (literals, compiled sequences)}."""
+    """{name: (fused scanner, literals, compiled sequences)}: three
+    ensembles of chosen shapes and the `batch4` ensemble as DeviceScanner
+    builds it for the 100-literal + 10-regex batch."""
     from grab_tpu_torch.ops.classseq import compile_sequences
+    from grab_tpu_torch.ops.fused import FusedEnsembleScanner
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
 
     lower = sum(1 << b for b in range(97, 123))
     one = compile_sequences([(DIGIT, DIGIT, DIGIT, lower, lower)])
     three = compile_sequences([(DIGIT,) * 5, (HIGH, DIGIT, HIGH), (DIGIT,) * 8])
     shorts = [bytes(rng.integers(97, 123, size=int(rng.integers(3, 7)), dtype=np.uint8))
               for _ in range(60)]
-    return {
+    sets = {
         "100 long + 1 seq": (long_literals(np, rng, 100), one),
         "60 short + 40 long + 3 seqs": (shorts + long_literals(np, rng, 40), three),
         "1 bucket + 3 seqs": ([b"linus", b"lmnus", b"lnnus"], three),
     }
+    out = {name: (FusedEnsembleScanner(lits, seqs), lits, seqs)
+           for name, (lits, seqs) in sets.items()}
+    lits = batch_literals(np)
+    sc = DeviceScanner(compile_multi(lits + BATCH_REGEXES), buf_size=1 << 20,
+                       device="cpu").members[0]
+    check(type(sc) is FusedEnsembleScanner, f"batch4: member {type(sc).__name__}")
+    out["batch4"] = (sc, lits, None)
+    return out
 
 
-def phase_fused(torch, np, rng, rate):
-    """B6 against its plain version at 32 MiB geometry, bit for bit."""
+def phase_fused(torch, np, rng, rate, rng5):
+    """B6 against its plain version at 32 MiB geometry, bit for bit
+    (the batch4 ensemble's buffers from rng5, so the older sets' and
+    phases' data stay what they were)."""
     from grab_tpu_torch.ops import fused as fu
 
     results = []
-    for name, (lits, seqs) in fused_sets(np, rng).items():
-        sc = fu.FusedEnsembleScanner(lits, seqs)
-        plants = lits[:10] + [seq_needle(s, rng) for s in seqs]
-        bufs = kernel_buffers(np, rng, plants)
+    for name, (sc, lits, seqs) in fused_sets(np, rng).items():
+        if seqs is None:  # batch4: its sequences' and regexes' hits
+            plants = lits[:10] + BATCH_PLANTS[:10]
+            bufs = kernel_buffers(np, rng5, plants)
+        else:
+            plants = lits[:10] + [seq_needle(s, rng) for s in seqs]
+            bufs = kernel_buffers(np, rng, plants)
+        seqs = sc.seqs or ()
 
         def ops(w, sc=sc):
             # the members' counts, as for B1, B5 and B4 alone
@@ -1318,7 +1402,7 @@ class HostRefs:
     given the slice's paths (the CLI prints the ``path:`` prefix for
     several paths as for -r), and the outputs are joined in order."""
 
-    def __init__(self, here: str, workers: int = 6):
+    def __init__(self, here: str, workers: int = 7):
         from concurrent.futures import ThreadPoolExecutor
 
         self.here = here
@@ -1811,6 +1895,7 @@ def main() -> int:
     # the phases added later draw from a stream of their own, so the
     # earlier phases' trees and buffers stay what they were
     rng4 = np.random.default_rng(SEED + 4)
+    rng5 = np.random.default_rng(SEED + 5)
     sms = props.multi_processor_count
     refs = HostRefs(here)
     try:
@@ -1830,11 +1915,11 @@ def main() -> int:
             rate = sms * INT32_LANES_PER_SM * sm_clock * 1e6  # int32 operations per second
             kres = phase_kernels(torch, np, cw, rng, rate)
             cres = phase_classseq(torch, np, rng, rate)
-            sres = phase_stride(torch, np, rng, sms, sm_clock)
-            scres = phase_stride_scanner(torch, np, rng)
+            sres = phase_stride(torch, np, rng, sms, sm_clock, rng5)
+            scres = phase_stride_scanner(torch, np, rng, rng5)
             ares = phase_alpharun(torch, np, rng, rate)
             xres = phase_xor(torch, np, rng, rate)
-            fres = phase_fused(torch, np, rng, rate)
+            fres = phase_fused(torch, np, rng, rate, rng5)
             wres = phase_walk(torch, np, rng)
             tres = phase_transpose(torch, np, rng4)
             tpaths, t_launches = phase_transpose_paths(torch, np, rng4)

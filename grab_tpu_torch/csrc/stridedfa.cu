@@ -7,53 +7,81 @@
 // What it computes. The buffer is 16384 streams in stream-major layout:
 // word g of stream s = r*128 + c at row g*128 + r, lane c, int32
 // [S_w*128, 128]. Each stream walks the automaton from its entry state,
-// K bytes per lookup: q = sum over the K bytes of sidx[p][byte] (the
-// byte's run/class index scaled by its place in base m, earliest byte
-// most significant), e = flat[state * m^K + q], state = e & (acc_bit-1).
+// K bytes per lookup: q = the K bytes' run/class indices idx[byte] in
+// base m (earliest byte most significant), e = flat[state * m^K + q],
+// state = e & (acc_bit-1).
 // A word is a hit when acc_bit was set in any of its 4/K entries (accept
 // is sticky inside an entry). Outputs, bit for bit as the TPU kernel's:
 //   bm[R / 16, c]  bit R % 16 = hit at row R = g*128 + r
 //   exits[s]       the state after the stream's last byte
 //
 // What bounds it. Bytes: the buffer is read once and the bitmap written
-// once (32 MiB + 2 MiB: ~10 us at 3.35 TB/s). But each stream is a chain
-// of S_w * 4/K dependent table lookups (2048 for a 32 MiB buffer at
-// K = 1), and the geometry gives one thread per stream: 16384 threads,
-// ~4 warps per SM, too few to hide the latency of a shared-memory
-// lookup. So the walk is bound by the chain: S_w * 4/K lookups times
-// the latency of one link (index arithmetic + shared load), not by
-// bytes. Keeping the reference's 16384-stream geometry keeps the flags
-// comparable bit for bit; more streams (shorter chains) is later work.
+// once (32 MiB + 2 MiB: ~10 us at 3.35 TB/s). But a stream is a chain of
+// S_w * 4/K dependent table lookups (1024 for a 32 MiB buffer at K = 2),
+// ~40 SM cycles a link: with one thread per stream (16384 chains, ~4 warps
+// per SM) no walk could beat S_w * 4/K links (20 us at K = 2). Cut into
+// segments, the longest chain is a segment and its warm-up (144 links at
+// K = 2, ~3 us), and what remains is instruction throughput: some 30
+// instructions and 4 + 4/K shared-memory lookups per word, whose table
+// lookups meet in banks, over 1024 threads per SM.
 //
-// What the design does about it. The whole table (flat, <= 4096 int32
-// entries) and the 4 x 256 scaled byte index sit in shared memory, so
-// run, runp, cls and their 16-bit variants are one code path: one
-// lookup per K bytes, where the TPU needed one gather + select per
-// packed table row. The K index lookups of a link do not depend on the
-// state, so only the table lookup is on the chain: the next word's
-// index lookups are issued before the current word's chain. A block is 16
-// stream-rows x 8 lanes (128 threads, 128 blocks): a warp reads 4 rows
-// x 32 contiguous bytes per word step, whole 32-byte sectors. Words come
-// in chunks of 32 steps, the next chunk's loads issued before the
-// current chunk is walked (double buffering in registers), so memory
-// latency hides behind the chain. Each thread keeps its chunk's hits as
-// a 32-bit mask; at the chunk's end the block transposes them through
-// shared memory into bitmap words (16 rows per word), written as whole
-// sectors.
+// What the design does about it: a segmented, speculative walk with an
+// exact fix-up (the data-parallel finite-state-machine technique of
+// Mytkowicz, Musuvathi and Schulte, ASPLOS 2014; the reference's stream
+// threading argument applied inside a stream).
+//   - Segments. A stream's word steps are cut into tiles of kSegs
+//     segments of S <= kSegMax words (S = ceil(S_w / kSegs) when that is
+//     smaller); one thread walks one segment, so a 32 MiB buffer is
+//     131072 chains of 64 words. Segment 0 of a tile starts from the true
+//     state (the stream's entry, or the previous tile's exit); segment
+//     p > 0 from a guess: the state reached by walking the kWarm words
+//     before it from the start state. The thread keeps its hits in a
+//     64-bit register and its state at every kCk-th word as a checkpoint.
+//   - Fix-up, exact on any automaton. Segment p's true entry is segment
+//     p-1's exit. In rounds synchronised by the block, segment p becomes
+//     final in round p (its predecessor is final by then); if its entry
+//     differs from the one it walked from, it re-walks from the true one,
+//     a checkpoint chunk at a time, rewriting its hits, and stops at the
+//     first checkpoint where its state equals the recorded one (the
+//     deterministic walk is the same from there) or at its end with a new
+//     exit. So a segment re-walks at most once, and the block stops at the
+//     first round in which every entry equals its predecessor's exit (all
+//     walks are then the true ones). A guess that is never right (an
+//     automaton that does not synchronise) costs about one more chain of
+//     the stream, one segment after the other.
+//   - Block layout. A block is 8 stream rows x 8 lanes x 8 segments
+//     (512 threads, 256 blocks, two per SM): a warp reads 4 rows x 32
+//     contiguous bytes per word step (whole sectors), and the hits go
+//     through shared memory to the block's byte of each bitmap word (a
+//     bitmap word holds 16 rows: two blocks own its two low bytes), 8
+//     words x 8 rows at a time as one 64-bit bit-matrix transpose, written
+//     only where some row was walked.
+//   - Tables. The whole transition table (<= 4096 int32) and the byte's
+//     run/class index sit in shared memory: one code path for run, runp,
+//     cls and their 16-bit variants. The index is replicated per warp
+//     lane (256 x 32 words), so its lookups of random bytes never share a
+//     bank; the table lookups on the chain do. The index lookups of a word
+//     do not depend on the state, so those of word j+1 are made before
+//     word j's chain.
 //
-// The fixpoint (gt_stride_fixpoint) queues max_rounds walks without a
-// host sync: after each walk a one-block kernel threads the exits into
-// the next entries (stream s gets stream s-1's exit, stream 0 the start
-// state), counts the walk, and sets a device "converged" word when the
-// entries did not change; every later walk and threading kernel returns
-// at once when that word is set. A last kernel fills the bitmap with -1
-// if the entries still changed after the last walk, the reference's
-// fallback. So the walks run, the final bitmap (the walk from the
-// converged entries) and the fallback equal the reference's.
+// The threading fixpoint (gt_stride_fixpoint) queues max_rounds walks
+// without a host sync: after each walk a one-block kernel threads the
+// exits into the next entries (stream s gets stream s-1's exit, stream 0
+// the start state), counts the walk, and sets a device "converged" word
+// when the entries did not change; every later walk and threading kernel
+// returns at once when that word is set. A last kernel fills the bitmap
+// with -1 if the entries still changed after the last walk, the
+// reference's fallback. The first walk stores every checkpoint in a
+// device scratch (ckpt_words(S_w) int32); a later walk re-walks only
+// streams whose entry changed, from segment 0 through the same fix-up
+// against the stored checkpoints, and leaves every other bitmap row and
+// exit as they are. So the walks run, the final bitmap and the fallback
+// equal the reference's.
 //
 // The kernels allocate nothing and run on the caller's stream; the C
 // entry points return the first launch error (cudaGetLastError()).
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -64,117 +92,305 @@ constexpr int kStreamRows = 128;
 constexpr int kLanes = 128;
 constexpr int kStreams = kStreamRows * kLanes;  // 16384
 constexpr int kMaxFlat = 4096;                  // CAPACITY16 entries
-constexpr int kBlockRows = 16;                  // stream rows per block
-constexpr int kBlockLanes = 8;                  // lanes per block
-constexpr int kThreads = kBlockRows * kBlockLanes;  // 128
-constexpr int kChunk = 32;                      // word steps per hit mask
+constexpr int kBlockRows = 8;                   // stream rows per block: half a bitmap word
+constexpr int kBlockLanes = 8;                  // lanes per block: a warp reads 32-byte sectors
+constexpr int kBlockStreams = kBlockRows * kBlockLanes;  // 64
+constexpr int kSegs = 8;                        // segments per tile
+constexpr int kThreads = kBlockStreams * kSegs;  // 512
+constexpr int kBlocks = kStreams / kBlockStreams;  // 256
+constexpr int kSegMax = 64;                     // words per segment (hits: 64 bits)
+constexpr int kCk = 8;                          // words per checkpoint chunk
+constexpr int kMaxCk = kSegMax / kCk;
+constexpr int kWarm = 8;                        // warm-up words of a guess
+static_assert(kWarm <= kCk, "the warm-up is one chunk");
+
+// Segment geometry of a walk over s_w word steps (ops/stridedfa.py
+// segment_geometry mirrors it).
+struct Geometry {
+  int seg;    // words per segment
+  int tiles;  // tiles of kSegs segments
+  int n_ck;   // checkpoints per segment
+};
+
+__host__ __device__ inline Geometry geometry(int s_w) {
+  Geometry g;
+  g.seg = (s_w + kSegs - 1) / kSegs;
+  if (g.seg > kSegMax) g.seg = kSegMax;
+  g.tiles = (s_w + kSegs * g.seg - 1) / (kSegs * g.seg);
+  g.n_ck = (g.seg + kCk - 1) / kCk;
+  return g;
+}
+
+int64_t ckpt_words(int64_t s_w) {
+  const Geometry g = geometry(static_cast<int>(s_w));
+  return static_cast<int64_t>(g.tiles) * kSegs * g.n_ck * kStreams;
+}
+
+// dynamic shared memory: the flat table, then the byte index [256][32],
+// one copy per warp lane
+constexpr size_t kDynSmem = (kMaxFlat + 256 * 32) * sizeof(int32_t);
 
 struct WalkArgs {
   const uint32_t* words;
   int s_w;
   const int32_t* flat;
   int n_flat;
-  const int32_t* sidx;  // [4][256]
+  const int32_t* idx;  // [256]: byte → run/class index
+  int m;
   int mk;
   int acc_bit;
+  int start;  // the automaton's start state: where a guess's warm-up begins
   const int32_t* entries;
   int32_t* bm;
   int32_t* exits;
+  int32_t* ckpt;        // checkpoint scratch (nullable: shared memory)
+  int incremental;      // a fixpoint walk after the first: ckpt holds the last walk
   const int32_t* done;  // skip the walk when *done != 0 (nullable)
+  unsigned long long* rewalked;  // += words re-walked by the fix-up (nullable)
 };
 
-// q of each of the word's 4/K links: the sum of its K bytes' scaled
-// run/class indices
+struct Tables {
+  const int32_t* flat;
+  const int32_t* idx;
+  int lane, m, mk, acc_bit, smask;
+};
+
+// q of each of the word's 4/K links: its K bytes' run/class indices in
+// base m, the earliest byte most significant
 template <int K>
-__device__ __forceinline__ void link_indices(uint32_t x, const int32_t (*s_idx)[256],
-                                             int* q) {
+__device__ __forceinline__ void link_indices(uint32_t x, const Tables& t, int* q) {
 #pragma unroll
   for (int l = 0; l < 4 / K; ++l) {
     q[l] = 0;
 #pragma unroll
-    for (int p = l * K; p < (l + 1) * K; ++p) q[l] += s_idx[p][(x >> (8 * p)) & 0xffu];
+    for (int p = l * K; p < (l + 1) * K; ++p) {
+      q[l] = q[l] * t.m + t.idx[((x >> (8 * p)) & 0xffu) * 32 + t.lane];
+    }
   }
 }
 
+// Walks the first n (<= kCk) words of w from state; → bit j = word j hit.
 template <int K>
-__global__ void __launch_bounds__(kThreads) walk_kernel(const WalkArgs a) {
+__device__ __forceinline__ uint32_t walk_chunk(const Tables& t, const uint32_t (&w)[kCk],
+                                               int n, int& state) {
+  constexpr int kLinks = 4 / K;
+  int qn[kLinks];
+  link_indices<K>(w[0], t, qn);
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < kCk; ++j) {
+    if (j < n) {
+      int qc[kLinks];
+#pragma unroll
+      for (int l = 0; l < kLinks; ++l) qc[l] = qn[l];
+      if (j + 1 < kCk) link_indices<K>(w[j + 1], t, qn);
+      int hit = 0;
+#pragma unroll
+      for (int l = 0; l < kLinks; ++l) {
+        const int e = t.flat[state * t.mk + qc[l]];
+        hit |= e;
+        state = e & t.smask;
+      }
+      bits |= static_cast<uint32_t>((hit & t.acc_bit) != 0) << j;
+    }
+  }
+  return bits;
+}
+
+// An 8 x 8 bit matrix, row i in byte i, transposed: bit j of byte i ↔
+// bit i of byte j (three delta swaps).
+__device__ __forceinline__ unsigned long long transpose8(unsigned long long x) {
+  unsigned long long t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+  x ^= t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+  x ^= t ^ (t << 14);
+  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+  return x ^ t ^ (t << 28);
+}
+
+// words [g0, min(g0 + kCk, end)) of the stream whose word 0 is col; 0 past end
+__device__ __forceinline__ void load_chunk(const uint32_t* col, int g0, int end,
+                                           uint32_t (&w)[kCk]) {
+  constexpr size_t kStep = static_cast<size_t>(kStreamRows) * kLanes;
+#pragma unroll
+  for (int j = 0; j < kCk; ++j) w[j] = g0 + j < end ? __ldg(col + (g0 + j) * kStep) : 0u;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
   if (a.done != nullptr && *a.done) return;
-  __shared__ int32_t s_flat[kMaxFlat];
-  __shared__ int32_t s_idx[4][256];
-  __shared__ uint32_t s_hits[kBlockRows][kBlockLanes];
+  extern __shared__ int32_t s_tab[];
+  __shared__ int32_t s_ck[kMaxCk][kThreads];       // checkpoints of a single walk
+  __shared__ int32_t s_exit[kSegs][kBlockStreams];  // each segment's exit
+  __shared__ unsigned long long s_hm[kSegs][kBlockStreams];  // each segment's hits
+  __shared__ uint8_t s_upto[kSegs][kBlockStreams];  // words walked from the segment start
+  __shared__ uint8_t s_final[kSegs][kBlockStreams];  // the segment's walk is the true one
   const int t = threadIdx.x;
-  for (int i = t; i < a.n_flat; i += kThreads) s_flat[i] = a.flat[i];
-  for (int i = t; i < 4 * 256; i += kThreads) (&s_idx[0][0])[i] = a.sidx[i];
-  const int rg = blockIdx.x / (kLanes / kBlockLanes);  // 16-row group
+  const int sl = t % kBlockStreams;  // stream in the block: r_l * 8 + c_l
+  const int p = t / kBlockStreams;   // segment
+  const int c_l = sl % kBlockLanes;
+  const int r_l = sl / kBlockLanes;
+  const int rg = blockIdx.x / (kLanes / kBlockLanes);  // 8-row group
   const int cg = blockIdx.x % (kLanes / kBlockLanes);  // 8-lane group
-  const int r_l = t / kBlockLanes;
-  const int c_l = t % kBlockLanes;
   const int r = rg * kBlockRows + r_l;
   const int c = cg * kBlockLanes + c_l;
   const int s = r * kLanes + c;
-  int state = a.entries[s];
-  const int smask = a.acc_bit - 1;
+  const Geometry geo = geometry(a.s_w);
+  const bool global_ck = a.ckpt != nullptr;
+  // checkpoint j of (tile, segment p) lives at ck[j * ck_step]
+  auto ck_at = [&](int tile) -> int32_t* {
+    if (!global_ck) return &s_ck[0][t];
+    return a.ckpt + (static_cast<size_t>(tile) * kSegs + p) * geo.n_ck * kStreams + s;
+  };
+  const int ck_step = global_ck ? kStreams : kThreads;
+
+  if (a.incremental) {
+    // a stream whose entry did not change keeps its rows and exit: a
+    // block none of whose streams changed has nothing to do
+    const bool moved = p == 0 && a.entries[s] != a.ckpt[s];
+    if (!__syncthreads_or(moved)) return;
+  }
+  for (int i = t; i < a.n_flat; i += kThreads) s_tab[i] = a.flat[i];
+  int32_t* s_idx = s_tab + kMaxFlat;
+  // one copy of the index per warp lane: lane l reads bank l whatever
+  // the byte
+  for (int i = t; i < 256 * 32; i += kThreads) s_idx[i] = a.idx[i / 32];
+  const Tables tab{s_tab, s_idx, t % 32, a.m, a.mk, a.acc_bit, a.acc_bit - 1};
+  const uint32_t* col = a.words + static_cast<size_t>(r) * kLanes + c;
+  int tile_in = a.entries[s];  // segment 0's true entry (read by p == 0)
+  unsigned long long rewalked = 0;
   __syncthreads();
 
-  // word of step g for this stream
-  const uint32_t* col = a.words + static_cast<size_t>(r) * kLanes + c;
-  const size_t step = static_cast<size_t>(kStreamRows) * kLanes;
-  uint32_t cur[kChunk];
-  uint32_t nxt[kChunk];
-#pragma unroll
-  for (int j = 0; j < kChunk; ++j) {
-    cur[j] = j < a.s_w ? __ldg(col + j * step) : 0u;
-  }
-  for (int g0 = 0; g0 < a.s_w; g0 += kChunk) {
-    const int n = min(kChunk, a.s_w - g0);
-    const int g1 = g0 + kChunk;
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      nxt[j] = g1 + j < a.s_w ? __ldg(col + (g1 + j) * step) : 0u;
-    }
-    // the links' indices do not depend on the state: those of word j+1
-    // are looked up before word j's chain runs, so their latency hides
-    // behind it
-    constexpr int kLinks = 4 / K;
-    int qn[kLinks];
-    link_indices<K>(cur[0], s_idx, qn);
-    uint32_t hm = 0;
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (j < n) {
-        int qc[kLinks];
-#pragma unroll
-        for (int l = 0; l < kLinks; ++l) qc[l] = qn[l];
-        if (j + 1 < kChunk) link_indices<K>(cur[j + 1], s_idx, qn);
-        int hit = 0;
-#pragma unroll
-        for (int l = 0; l < kLinks; ++l) {
-          const int e = s_flat[state * a.mk + qc[l]];
-          hit |= e;
-          state = e & smask;
-        }
-        hm |= static_cast<uint32_t>((hit & a.acc_bit) != 0) << j;
+  for (int tile = 0; tile < geo.tiles; ++tile) {
+    const int t0 = tile * kSegs * geo.seg;
+    const int tile_words = min(kSegs * geo.seg, a.s_w - t0);
+    const int last_p = (tile_words - 1) / geo.seg;
+    const int lo = t0 + p * geo.seg;
+    const int n = max(0, min(geo.seg, a.s_w - lo));
+    int32_t* ck = ck_at(tile);
+    int entry = 0;                   // the entry the segment's hits are walked from
+    unsigned long long hm = 0;       // bit j: word lo + j hit
+    int upto = 0;                    // words [lo, lo + upto) walked in this launch
+    if (a.incremental) {
+      // the last walk, stored: its entries, exits and rows stand until
+      // the fix-up moves them
+      if (n > 0) entry = ck[0];
+      if (p < last_p) {
+        s_exit[p][sl] = ck_at(tile)[geo.n_ck * kStreams];  // segment p+1's entry
+      } else if (p == last_p) {
+        s_exit[p][sl] = tile + 1 < geo.tiles ? a.ckpt[static_cast<size_t>(tile + 1) * kSegs *
+                                                          geo.n_ck * kStreams + s]
+                                             : a.exits[s];
       }
+    } else if (n > 0) {
+      int state = tile_in;
+      uint32_t cur[kCk], nxt[kCk];
+      if (p > 0) {  // the guess: the kWarm words before the segment, from start
+        const int wl = min(kWarm, lo);
+        state = a.start;
+        load_chunk(col, lo - wl, lo, cur);
+        walk_chunk<K>(tab, cur, wl, state);
+      }
+      entry = state;
+      load_chunk(col, lo, lo + n, cur);
+      for (int j = 0; j * kCk < n; ++j) {
+        load_chunk(col, lo + (j + 1) * kCk, lo + n, nxt);  // the next chunk in flight
+        ck[j * ck_step] = state;
+        const uint32_t bits = walk_chunk<K>(tab, cur, min(kCk, n - j * kCk), state);
+        hm |= static_cast<unsigned long long>(bits) << (j * kCk);
+#pragma unroll
+        for (int i = 0; i < kCk; ++i) cur[i] = nxt[i];
+      }
+      upto = n;
+      s_exit[p][sl] = state;
     }
-    // hits of 16 stream rows x 8 lanes x n steps → bitmap words
-    s_hits[r_l][c_l] = hm;
+
+    // the fix-up: rounds until every segment's entry is its predecessor's
+    // exit; a segment is fixed once its predecessor is final, so each is
+    // re-walked at most once
+    bool final = false;
+    s_final[p][sl] = 0;
+    for (int round = 0; round < kSegs; ++round) {
+      __syncthreads();
+      const int in = p == 0 ? tile_in : s_exit[p - 1][sl];
+      const bool ready = p == 0 || s_final[p - 1][sl];
+      __syncthreads();
+      const bool stale = n > 0 && in != entry;
+      if (ready && !final) {
+        final = true;
+        s_final[p][sl] = 1;
+      }
+      if (stale && final) {
+        int state = in;
+        entry = in;
+        bool merged = false;
+        int j = 0;
+        uint32_t cur[kCk], nxt[kCk];
+        load_chunk(col, lo, lo + n, cur);
+        for (; j * kCk < n; ++j) {
+          if (j > 0 && ck[j * ck_step] == state) {
+            merged = true;  // the same walk from here on
+            break;
+          }
+          ck[j * ck_step] = state;
+          load_chunk(col, lo + (j + 1) * kCk, lo + n, nxt);
+          const uint32_t bits = walk_chunk<K>(tab, cur, min(kCk, n - j * kCk), state);
+          hm = (hm & ~(((1ull << kCk) - 1) << (j * kCk))) |
+               (static_cast<unsigned long long>(bits) << (j * kCk));
+#pragma unroll
+          for (int i = 0; i < kCk; ++i) cur[i] = nxt[i];
+        }
+        const int walked = min(n, j * kCk);
+        rewalked += walked;
+        upto = max(upto, walked);
+        if (!merged) s_exit[p][sl] = state;
+      }
+      if (!__syncthreads_or(stale)) break;
+    }
+
+    // hits → bitmap words: bit r_l + 8 * (rg % 2) of bm[(t0 + w) * 8 +
+    // rg / 2, c] for the rows walked at word t0 + w; the other rows' bits
+    // stay. The block owns one byte of each bitmap word (the other 8-row
+    // group the other), and the first walk zeroes the upper half. A task
+    // is 8 words of one segment and lane: the 8 rows' hit and walked bits
+    // as an 8 x 8 bit matrix, transposed into the 8 words' bytes.
+    s_hm[p][sl] = hm;
+    s_upto[p][sl] = static_cast<uint8_t>(upto);
     __syncthreads();
-    for (int o = t; o < n * kBlockLanes; o += kThreads) {
-      const int j = o / kBlockLanes;
-      const int cl = o % kBlockLanes;
-      uint32_t word = 0;
+    const int chunks = (geo.seg + 7) / 8;
+    for (int task = t; task < kSegs * kBlockLanes * chunks; task += kThreads) {
+      const int cl = task % kBlockLanes;
+      const int j0 = task / kBlockLanes % chunks * 8;
+      const int sp = task / (kBlockLanes * chunks);
+      const int n_sp = min(geo.seg, a.s_w - (t0 + sp * geo.seg));
+      if (n_sp <= j0) continue;
+      unsigned long long hits = 0, walked = 0;
 #pragma unroll
       for (int rl = 0; rl < kBlockRows; ++rl) {
-        word |= ((s_hits[rl][cl] >> j) & 1u) << rl;
+        const int q = rl * kBlockLanes + cl;
+        const int u = min(8, max(0, s_upto[sp][q] - j0));
+        hits |= ((s_hm[sp][q] >> j0) & 0xffull) << (8 * rl);
+        walked |= static_cast<unsigned long long>((1u << u) - 1) << (8 * rl);
       }
-      const size_t row = static_cast<size_t>(g0 + j) * (kStreamRows / 16) + rg;
-      a.bm[row * kLanes + cg * kBlockLanes + cl] = static_cast<int32_t>(word);
+      hits = transpose8(hits);
+      walked = transpose8(walked);
+      for (int k = 0; k < min(8, n_sp - j0); ++k) {
+        const uint32_t mask = (walked >> (8 * k)) & 0xffu;
+        if (!mask) continue;
+        uint32_t bits = (hits >> (8 * k)) & mask;
+        const size_t g = t0 + sp * geo.seg + j0 + k;
+        int32_t* word = a.bm + (g * (kStreamRows / 16) + rg / 2) * kLanes + cg * kBlockLanes + cl;
+        uint8_t* dst = reinterpret_cast<uint8_t*>(word) + rg % 2;
+        if (mask != 0xffu) bits |= *dst & ~mask;
+        *dst = static_cast<uint8_t>(bits);
+        if (!a.incremental && rg % 2 == 0) reinterpret_cast<uint16_t*>(word)[1] = 0;
+      }
     }
+    tile_in = s_exit[last_p][sl];
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) cur[j] = nxt[j];
   }
-  a.exits[s] = state;
+  if (p == 0) a.exits[s] = tile_in;
+  if (a.rewalked != nullptr && rewalked) atomicAdd(a.rewalked, rewalked);
 }
 
 // state[0]: converged (entries stopped changing); state[1]: walks run.
@@ -211,38 +427,63 @@ __global__ void fallback_kernel(int32_t* __restrict__ bm, int64_t n,
   }
 }
 
-int check_args(int64_t s_w, int n_flat, int k, int mk, int acc_bit) {
+int check_args(int64_t s_w, int n_flat, int k, int m, int acc_bit, int start) {
+  int64_t mk = 1;
+  for (int i = 0; i < k; ++i) mk *= m;
   if (s_w <= 0 || s_w > (1 << 24) || n_flat <= 0 || n_flat > kMaxFlat ||
-      (k != 1 && k != 2 && k != 4) || mk <= 0 || mk > n_flat ||
-      (acc_bit != (1 << 7) && acc_bit != (1 << 15))) {
+      (k != 1 && k != 2 && k != 4) || m <= 0 || mk > n_flat ||
+      (acc_bit != (1 << 7) && acc_bit != (1 << 15)) || start < 0 ||
+      start * mk >= n_flat) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
 }
 
-void launch_walk(const WalkArgs& a, int k, cudaStream_t st) {
-  const int blocks = (kStreamRows / kBlockRows) * (kLanes / kBlockLanes);
+// The walk's shared memory is above the 48 KiB default: allowed once per
+// device and kernel (a bit per device index).
+template <int K>
+cudaError_t launch_k(const WalkArgs& a, int device, cudaStream_t st) {
+  static std::atomic<uint64_t> allowed{0};
+  const uint64_t bit = 1ull << (device & 63);
+  if (!(allowed.load() & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDynSmem));
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  walk_kernel<K><<<kBlocks, kThreads, kDynSmem, st>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_walk(const WalkArgs& a, int k, int device, cudaStream_t st) {
   switch (k) {
-    case 4: walk_kernel<4><<<blocks, kThreads, 0, st>>>(a); break;
-    case 2: walk_kernel<2><<<blocks, kThreads, 0, st>>>(a); break;
-    default: walk_kernel<1><<<blocks, kThreads, 0, st>>>(a); break;
+    case 4: return launch_k<4>(a, device, st);
+    case 2: return launch_k<2>(a, device, st);
+    default: return launch_k<1>(a, device, st);
   }
 }
 
 WalkArgs make_args(const void* words, int64_t s_w, const void* flat,
-                   int n_flat, const void* sidx, int mk, int acc_bit) {
+                   int n_flat, const void* idx, int k, int m, int acc_bit, int start,
+                   void* rewalked) {
   WalkArgs a;
   a.words = static_cast<const uint32_t*>(words);
   a.s_w = static_cast<int>(s_w);
   a.flat = static_cast<const int32_t*>(flat);
   a.n_flat = n_flat;
-  a.sidx = static_cast<const int32_t*>(sidx);
-  a.mk = mk;
+  a.idx = static_cast<const int32_t*>(idx);
+  a.m = m;
+  a.mk = 1;
+  for (int i = 0; i < k; ++i) a.mk *= m;
   a.acc_bit = acc_bit;
+  a.start = start;
   a.entries = nullptr;
   a.bm = nullptr;
   a.exits = nullptr;
+  a.ckpt = nullptr;
+  a.incremental = 0;
   a.done = nullptr;
+  a.rewalked = static_cast<unsigned long long*>(rewalked);
   return a;
 }
 
@@ -279,37 +520,45 @@ int gt_stride_link_cycles(int n_links, void* cycles, int device, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// int32 words of the fixpoint's checkpoint scratch for s_w word steps.
+int64_t gt_stride_ckpt_words(int64_t s_w) {
+  return s_w <= 0 || s_w > (1 << 24) ? -1 : ckpt_words(s_w);
+}
+
 // One walk. words: device int32 [s_w*128, 128]; flat: device int32
-// [n_flat]; sidx: device int32 [4, 256]; entries, exits: device int32
-// [128, 128]; bm: device int32 [s_w*8, 128].
+// [n_flat]; idx: device int32 [256]; entries, exits: device int32
+// [128, 128]; bm: device int32 [s_w*8, 128]; rewalked: device uint64 [1]
+// (nullable) += the words the fix-up re-walked.
 int gt_stride_walk(const void* words, int64_t s_w, const void* flat,
-                   int n_flat, const void* sidx, int k, int mk, int acc_bit,
-                   const void* entries, void* bm, void* exits, int device,
-                   void* stream) {
-  int bad = check_args(s_w, n_flat, k, mk, acc_bit);
+                   int n_flat, const void* idx, int k, int m, int acc_bit,
+                   int start, const void* entries, void* bm, void* exits,
+                   void* rewalked, int device, void* stream) {
+  int bad = check_args(s_w, n_flat, k, m, acc_bit, start);
   if (bad) return bad;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  WalkArgs a = make_args(words, s_w, flat, n_flat, sidx, mk, acc_bit);
+  WalkArgs a = make_args(words, s_w, flat, n_flat, idx, k, m, acc_bit, start, rewalked);
   a.entries = static_cast<const int32_t*>(entries);
   a.bm = static_cast<int32_t*>(bm);
   a.exits = static_cast<int32_t*>(exits);
-  launch_walk(a, k, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_walk(a, k, device, static_cast<cudaStream_t>(stream)));
 }
 
 // The threading fixpoint: up to max_rounds walks, queued at once.
-// ent: device int32 [128, 128] scratch (the current entries); state:
-// device int32 [2] ← (converged, walks run). bm ends as the bitmap of
-// the walk from the converged entries, or all -1.
+// ent: device int32 [128, 128] scratch (the current entries); ckpt:
+// device int32 scratch of ckpt_words >= gt_stride_ckpt_words(s_w);
+// state: device int32 [2] ← (converged, walks run). bm ends as the
+// bitmap of the walk from the converged entries, or all -1.
 int gt_stride_fixpoint(const void* words, int64_t s_w, const void* flat,
-                       int n_flat, const void* sidx, int k, int mk,
+                       int n_flat, const void* idx, int k, int m,
                        int acc_bit, int start, int max_rounds, void* ent,
-                       void* bm, void* exits, void* state, int device,
-                       void* stream) {
-  int bad = check_args(s_w, n_flat, k, mk, acc_bit);
+                       void* ckpt, int64_t n_ckpt, void* bm, void* exits,
+                       void* state, void* rewalked, int device, void* stream) {
+  int bad = check_args(s_w, n_flat, k, m, acc_bit, start);
   if (bad) return bad;
-  if (max_rounds < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (max_rounds < 1 || ckpt == nullptr || n_ckpt < ckpt_words(s_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -318,13 +567,16 @@ int gt_stride_fixpoint(const void* words, int64_t s_w, const void* flat,
   err = cudaMemsetAsync(sflag, 0, 2 * sizeof(int32_t), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   fill_kernel<<<kStreams / 256, 256, 0, st>>>(e, kStreams, start);
-  WalkArgs a = make_args(words, s_w, flat, n_flat, sidx, mk, acc_bit);
+  WalkArgs a = make_args(words, s_w, flat, n_flat, idx, k, m, acc_bit, start, rewalked);
   a.entries = e;
   a.bm = static_cast<int32_t*>(bm);
   a.exits = static_cast<int32_t*>(exits);
+  a.ckpt = static_cast<int32_t*>(ckpt);
   a.done = sflag;
   for (int round = 0; round < max_rounds; ++round) {
-    launch_walk(a, k, st);
+    a.incremental = round > 0;
+    err = launch_walk(a, k, device, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
     thread_kernel<<<1, 1024, 0, st>>>(a.exits, e, start, sflag);
   }
   const int64_t n_bm = s_w * (kStreamRows / 16) * kLanes;

@@ -261,20 +261,16 @@ class StrideDfaTables:
             if mode in ("runp", "runp16"):
                 idx = idx * 2 + (byte & 1)
         self.byte_index = idx  # int64 [256]: byte → run/class index
-        self._dev = {}  # device → (flat int32, scaled index int32 [4, 256])
+        self._dev = {}  # device → (flat int32, byte index int32 [256])
 
     def device_tables(self, device: torch.device):
-        """The kernel's inputs on ``device``: flat int32 [S*m^k] and the
-        per-byte-position index scaled by its place in the k-byte fold,
-        int32 [4, 256] (sidx[p, b] = byte_index[b] * m^(k-1-p%k)), so q
-        is a sum of 4/k independent lookups. Uploaded once per device."""
+        """The kernel's inputs on ``device``: flat int32 [S*m^k] and
+        byte_index int32 [256]. Uploaded once per device."""
         key = str(device)
         if key not in self._dev:
-            scale = [self.m ** (self.k - 1 - p % self.k) for p in range(4)]
-            sidx = np.stack([self.byte_index * s for s in scale]).astype(np.int32)
             self._dev[key] = (
                 torch.from_numpy(self.flat.astype(np.int32)).to(device),
-                torch.from_numpy(sidx).to(device),
+                torch.from_numpy(self.byte_index.astype(np.int32)).to(device),
             )
         return self._dev[key]
 
@@ -348,6 +344,59 @@ def stride_fixpoint_torch(
 
 # -- the walk: CUDA kernel --------------------------------------------------
 
+# The kernel's segmented walk (csrc/stridedfa.cu): a stream's word steps
+# in tiles of SEGMENTS segments of at most SEG_MAX words, one thread per
+# segment, a checkpoint every CKPT words, a guess from the WARM words
+# before a segment.
+SEGMENTS = 8
+SEG_MAX = 64
+CKPT = 8
+WARM = 8
+
+
+def segment_geometry(s_w: int) -> Tuple[int, int, int, int]:
+    """The kernel's segment geometry for s_w word steps → (words per
+    segment, tiles, checkpoints per segment, int32 words of the
+    fixpoint's checkpoint scratch); csrc/stridedfa.cu geometry() and
+    gt_stride_ckpt_words compute the same."""
+    if s_w <= 0:
+        raise ValueError(f"s_w must be positive, got {s_w}")
+    seg = min(SEG_MAX, -(-s_w // SEGMENTS))
+    tiles = -(-s_w // (SEGMENTS * seg))
+    n_ck = -(-seg // CKPT)
+    return seg, tiles, n_ck, tiles * SEGMENTS * n_ck * N_STREAMS
+
+
+def chain_links(s_w: int, k: int) -> int:
+    """Dependent links of the longest chain of one walk when every guess
+    is right: per tile, one segment plus a guess's warm-up, 4/k links a
+    word."""
+    seg, tiles, _, _ = segment_geometry(s_w)
+    return tiles * (seg + min(WARM, s_w)) * (4 // k)
+
+
+_FIXUP = {}  # device index → counter: words the kernel's fix-up re-walked
+
+
+def _fixup_counter(dev: torch.device) -> torch.Tensor:
+    key = _dev_tail(dev)[0]
+    if key not in _FIXUP:
+        _FIXUP[key] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _FIXUP[key]
+
+
+def fixup_words(dev: torch.device, reset: bool = False) -> int:
+    """Words re-walked by the kernel's fix-up on ``dev`` since the last
+    reset (synchronises the device); ``reset`` zeroes the count. The
+    plain walk on the CPU re-walks nothing: 0."""
+    if torch.device(dev).type != "cuda":
+        return 0
+    cnt = _fixup_counter(dev)
+    n = int(cnt.item())
+    if reset:
+        cnt.zero_()
+    return n
+
 
 def _kernel_lib():
     from grab_tpu_torch import _build
@@ -359,10 +408,11 @@ def _kernel_lib():
             ctypes.c_int64,  # word steps
             ctypes.c_void_p,  # flat table (device int32)
             ctypes.c_int,  # flat entries
-            ctypes.c_void_p,  # scaled byte index (device int32 [4, 256])
+            ctypes.c_void_p,  # byte index (device int32 [256])
             ctypes.c_int,  # k
-            ctypes.c_int,  # m^k
+            ctypes.c_int,  # m (runs or classes)
             ctypes.c_int,  # acc_bit
+            ctypes.c_int,  # start state
         ]
         tail = [ctypes.c_int, ctypes.c_void_p]  # device index, stream
         lib.gt_stride_walk.restype = ctypes.c_int
@@ -370,16 +420,21 @@ def _kernel_lib():
             ctypes.c_void_p,  # entries
             ctypes.c_void_p,  # bm
             ctypes.c_void_p,  # exits
+            ctypes.c_void_p,  # re-walked word counter
         ] + tail
         lib.gt_stride_fixpoint.restype = ctypes.c_int
         lib.gt_stride_fixpoint.argtypes = common + [
-            ctypes.c_int,  # start state
             ctypes.c_int,  # max rounds
             ctypes.c_void_p,  # entries scratch
+            ctypes.c_void_p,  # checkpoint scratch
+            ctypes.c_int64,  # its int32 words
             ctypes.c_void_p,  # bm
             ctypes.c_void_p,  # exits
             ctypes.c_void_p,  # state: [converged, walks run]
+            ctypes.c_void_p,  # re-walked word counter
         ] + tail
+        lib.gt_stride_ckpt_words.restype = ctypes.c_int64
+        lib.gt_stride_ckpt_words.argtypes = [ctypes.c_int64]
         lib.gt_stride_link_cycles.restype = ctypes.c_int
         lib.gt_stride_link_cycles.argtypes = [ctypes.c_int, ctypes.c_void_p] + tail
     return lib
@@ -412,10 +467,10 @@ def _check_words(words2d_t: torch.Tensor) -> int:
 
 
 def _launch_args(words2d_t, tables, s_w):
-    flat, sidx = tables.device_tables(words2d_t.device)
+    flat, idx = tables.device_tables(words2d_t.device)
     return (
         words2d_t.data_ptr(), s_w, flat.data_ptr(), flat.numel(),
-        sidx.data_ptr(), tables.k, tables.m ** tables.k, tables.acc_bit,
+        idx.data_ptr(), tables.k, tables.m, tables.acc_bit, tables.start,
     )
 
 
@@ -447,7 +502,8 @@ def stride_dfa_scan(
     exits = torch.empty((STREAM_ROWS, LANES), dtype=torch.int32, device=dev)
     err = _kernel_lib().gt_stride_walk(
         *_launch_args(words2d_t, tables, s_w),
-        entries.data_ptr(), bm.data_ptr(), exits.data_ptr(), *_dev_tail(dev),
+        entries.data_ptr(), bm.data_ptr(), exits.data_ptr(),
+        _fixup_counter(dev).data_ptr(), *_dev_tail(dev),
     )
     if err != 0:
         raise RuntimeError(f"strided-DFA kernel launch failed: CUDA error {err}")
@@ -466,7 +522,10 @@ def stride_dfa_fixpoint(words2d_t: torch.Tensor, tables: StrideDfaTables):
     sync; after each walk a one-block kernel threads the exits into the
     next entries and sets a device flag when they stopped changing,
     which makes the later walks return at once; a last kernel fills the
-    bitmap with -1 if the flag was never set. Walks run and converged
+    bitmap with -1 if the flag was never set. The first walk keeps its
+    checkpoints in a device scratch (``segment_geometry``), so a later
+    walk re-walks only the streams whose entry changed, and only until
+    they meet the last walk. Walks run and converged
     come back as device int32 scalars; every queued walk counts in
     ``stride_dfa_scan.launches``. CPU tensors: stride_fixpoint_torch."""
     s_w = _check_words(words2d_t)
@@ -476,11 +535,12 @@ def stride_dfa_fixpoint(words2d_t: torch.Tensor, tables: StrideDfaTables):
     bm = torch.empty((s_w * STREAM_ROWS // 16, LANES), dtype=torch.int32, device=dev)
     exits = torch.empty((STREAM_ROWS, LANES), dtype=torch.int32, device=dev)
     ent = torch.empty((STREAM_ROWS, LANES), dtype=torch.int32, device=dev)
+    ckpt = torch.empty(segment_geometry(s_w)[3], dtype=torch.int32, device=dev)
     state = torch.empty(2, dtype=torch.int32, device=dev)
     err = _kernel_lib().gt_stride_fixpoint(
-        *_launch_args(words2d_t, tables, s_w), tables.start, MAX_ROUNDS,
-        ent.data_ptr(), bm.data_ptr(), exits.data_ptr(), state.data_ptr(),
-        *_dev_tail(dev),
+        *_launch_args(words2d_t, tables, s_w), MAX_ROUNDS,
+        ent.data_ptr(), ckpt.data_ptr(), ckpt.numel(), bm.data_ptr(), exits.data_ptr(),
+        state.data_ptr(), _fixup_counter(dev).data_ptr(), *_dev_tail(dev),
     )
     if err != 0:
         raise RuntimeError(f"strided-DFA fixpoint launch failed: CUDA error {err}")

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Times the strided-DFA walk (B2) and the fused ensemble (B6) of the
+grab_tpu_torch port on one CUDA card, in the checkout it runs from.
+
+    python3 kernel_ab.py [stride|fused|both]
+
+Run it from the root of two checkouts in turns (A, B, B, A) on one
+card, one after the other, to compare two versions of the kernels: both
+trees' chip_smoke.py give it the same seeded inputs. It prints one JSON
+line, RESULT {...}: device ms per 32 MiB buffer (CUDA events after a
+sleep kernel, over 4 distinct buffers, the better of two runs of 40
+launches), for every plan family of chip_smoke.STRIDE_PLANS on text
+with start entries, the non-synchronising automaton over one Q per
+stream, the scanner's fixpoint and window passes (these include the
+gaps between their queued launches), and the fused ensembles of
+chip_smoke.phase_fused plus single-member ensembles (the filter, the
+sequences, one bucket) that split the fused time into its members.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs  # noqa: E402  (the checkout's own, for its inputs)
+
+
+def stride_times(rng, dev):
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    s_w = cs.BUF // sd.N_STREAMS // 4
+    alpha = np.frombuffer(cs.STRIDE_ALPHABET, np.uint8)
+    text = rng.choice(alpha, size=cs.BUF).view("<i4").reshape(s_w * 128, 128)
+    ring = [torch.from_numpy(text).to(dev) for _ in range(4)]
+    qraw = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8), size=(16384, 4 * s_w))
+    qraw[:, 0] = ord("Q")
+    qw = np.ascontiguousarray(qraw.reshape(-1).view("<i4").reshape(16384, s_w).T)
+    qring = [torch.from_numpy(qw.reshape(s_w * 128, 128)).to(dev) for _ in range(4)]
+    res = {}
+    for pat, _plan in cs.STRIDE_PLANS + [(rb"Q(?:[a-z]{2})*Q", ("run", 2))]:
+        dfa = compile_multi([pat]).dfa
+        t = sd.StrideDfaTables(dfa, sd.stride_plan(dfa))
+        e = torch.full((128, 128), t.start, dtype=torch.int32, device=dev)
+        r = qring if pat.startswith(b"Q") else ring
+        res[pat.decode("latin-1")] = min(
+            cs.time_cuda(torch, lambda i: sd.stride_dfa_scan(r[i % 4], t, e), 40) for _ in range(2))
+    punct = cs.punct_bytes(np, rng, cs.BUF)
+    for s in range(3, 16000, 211):
+        cs.plant_run(punct, s * 2048 - 9, 30)
+    digits = np.full(cs.BUF, ord(" "), dtype=np.uint8)
+    for pos, span in ((9 * 2048 + 100, 7000), (4000 * 2048 - 30, 50), (cs.BUF - 3000, 2990)):
+        digits[pos] = ord("a")
+        digits[pos + 1 : pos + span] = ord("7")
+        digits[pos + span] = ord("b")
+    text = rng.integers(33, 127, size=cs.BUF, dtype=np.uint8)
+    for label, pat, buf in (("fixpoint -E", rb".{0,2}(?:[0-9a-zA-Z]{4})+", punct),
+                            ("fixpoint a[0-9]*b", rb"a[0-9]*b", digits),
+                            ("window .{0,2}[a-z ]{11}", rb".{0,2}[a-z ]{11}", text)):
+        cp = compile_multi([pat])
+        sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, cs.BUF)
+        wd = torch.from_numpy(sc.prep_t(buf)).to(dev)
+        res[label] = min(cs.time_cuda(torch, lambda i: sc.run_t(wd), 10) for _ in range(2))
+    return res
+
+
+def fused_times(rng, dev):
+    from grab_tpu_torch.ops import fused as fu
+    from grab_tpu_torch.ops.classseq import compile_sequences
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    lower = sum(1 << b for b in range(97, 123))
+    one = compile_sequences([(cs.DIGIT, cs.DIGIT, cs.DIGIT, lower, lower)])
+    three = compile_sequences([(cs.DIGIT,) * 5, (cs.HIGH, cs.DIGIT, cs.HIGH), (cs.DIGIT,) * 8])
+    longs = cs.long_literals(np, rng, 100)
+    shorts = [bytes(rng.integers(97, 123, size=int(rng.integers(3, 7)), dtype=np.uint8))
+              for _ in range(60)]
+    batch4 = DeviceScanner(compile_multi(cs.batch_literals(np) + cs.BATCH_REGEXES),
+                           buf_size=1 << 20, device="cpu").members[0]
+    sets = {
+        "100 long + 1 seq": fu.FusedEnsembleScanner(longs, one),
+        "60 short + 40 long + 3 seqs": fu.FusedEnsembleScanner(shorts + longs[:40], three),
+        "1 bucket + 3 seqs": fu.FusedEnsembleScanner([b"linus", b"lmnus", b"lnnus"], three),
+        "batch4": batch4,
+        "xor 100 only": fu.FusedEnsembleScanner(longs, None),
+        "1 seq only": fu.FusedEnsembleScanner([], one),
+        "3 seqs only": fu.FusedEnsembleScanner([], three),
+        "bucket K4 W2 only": fu.FusedEnsembleScanner([b"linus", b"lmnus", b"lnnus"], None),
+        "bucket K16 W2 only": fu.FusedEnsembleScanner(shorts[:16], None),
+    }
+    bufs = cs.kernel_buffers(np, rng, [b"linus", b"123ab", b"\x805\x81"] + longs[:5])
+    ring = [torch.from_numpy(bufs["text"]).to(dev) for _ in range(4)]
+    return {name: min(cs.time_cuda(torch, lambda i: fu.fused_word_flags(ring[i % 4], sc), 40)
+                      for _ in range(2))
+            for name, sc in sets.items()}
+
+
+def main() -> int:
+    what = sys.argv[1] if len(sys.argv) > 1 else "both"
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    out = {"tree": os.getcwd(), "card": cs.smi("name,power.limit")}
+    if what in ("both", "stride"):
+        out["stride_ms"] = stride_times(rng, dev)
+    if what in ("both", "fused"):
+        out["fused_ms"] = fused_times(rng, dev)
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

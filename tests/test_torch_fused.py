@@ -11,6 +11,8 @@ numpy oracle. The CUDA kernel itself runs only on the card:
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +56,9 @@ def _ensembles():
         "high bytes": (_lits(20, 3, 12, 6, 0x80, 256), [(HIGH, HIGH)]),
         "unmasked long bucket": ([b"needle%02dXY" % i for i in range(4)], one),
         "seqs only": ([], three),
+        # the 100-literal + 10-regex batch as DeviceScanner builds it
+        # (built in _batch4_pair)
+        "batch4": None,
     }
 
 
@@ -83,7 +88,26 @@ def _plants(lits):
     return list(lits[:5]) + [b"123ab", b"12345678", b"\x855\x85", b"\x80\x80"]
 
 
+@functools.lru_cache(maxsize=None)
+def _batch4_pair():
+    """The batch's fused scanner, as both packages' DeviceScanner builds
+    it: every literal of the compiled batch and its class sequences."""
+    from grab_tpu_torch.ops.classseq import compile_sequences
+
+    pats = test_mixed_batch.build()[0]
+    rcp, pcp = ref_compile(pats), compile_multi(pats)
+    r = ref.FusedEnsembleScanner([bytes(l) for l in rcp.literals],
+                                 ref_cp.compile_sequences(rcp.class_seqs),
+                                 tile_rows=256, interpret=True)
+    p = port.FusedEnsembleScanner([bytes(l) for l in pcp.literals],
+                                  compile_sequences(pcp.class_seqs))
+    # plants: three of the sequences' and the literal factors' hits first
+    return r, p, [b"555-1234", b"QWERT99", b"quuux"] + [bytes(l) for l in pcp.literals]
+
+
 def _pair(name):
+    if name == "batch4":
+        return _batch4_pair()
     lits, masks = ENSEMBLES[name]
     rseqs = ref_cp.compile_sequences(masks) if masks else None
     from grab_tpu_torch.ops.classseq import compile_sequences
@@ -143,7 +167,7 @@ def test_plain_bitmap_matches_reference(name, kind):
 
 
 @pytest.mark.parametrize("name", ["100 long + 1 seq", "60 short + 40 long + 3 seqs",
-                                  "1 bucket + 3 seqs"])
+                                  "1 bucket + 3 seqs", "batch4"])
 def test_scanner_flags_match_reference_kernel(name):
     """Against the Pallas kernel itself (interpret mode): bitmap,
     (total, packed) and decoded flags."""

@@ -194,6 +194,66 @@ def test_stride_walk_matches_plain(cuda, n_words):
             assert torch.equal(bm, bm_p) and torch.equal(ex, ex_p), (pat, t.mode, t.k)
 
 
+def _nosync_words(s_w: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    raw = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8), size=(128 * LANES, 4 * s_w))
+    raw[:, 0] = ord("Q")
+    lin = np.ascontiguousarray(raw).reshape(-1).view("<i4").reshape(128 * LANES, s_w)
+    return np.ascontiguousarray(lin.T).reshape(s_w * 128, LANES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_w", [5, 77, 512])
+def test_stride_walk_non_synchronising_matches_plain(cuda, s_w):
+    """Q(?:[a-z]{2})*Q over one Q per stream: every segment's guess is
+    wrong and the fix-up re-walks it, yet (bm, exits) equal the plain
+    walk's, at word-step counts that are and are not a multiple of the
+    segment count."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    dfa = compile_multi([rb"Q(?:[a-z]{2})*Q"]).dfa
+    t = sd.StrideDfaTables(dfa, sd.stride_plan(dfa))
+    w = torch.from_numpy(_nosync_words(s_w, s_w)).to(cuda)
+    rng = np.random.default_rng(s_w)
+    for ent in (np.full((128, LANES), t.start, np.int32),
+                rng.integers(0, t.n_states, (128, LANES), dtype=np.int32)):
+        e = torch.from_numpy(ent).to(cuda)
+        sd.fixup_words(cuda, reset=True)
+        bm, ex = sd.stride_dfa_scan(w, t, e)
+        rewalked = sd.fixup_words(cuda, reset=True)
+        bm_p, ex_p = sd.stride_dfa_scan_torch(w, t, e)
+        torch.cuda.synchronize()
+        assert torch.equal(bm, bm_p) and torch.equal(ex, ex_p)
+        seg = sd.segment_geometry(s_w)[0]
+        assert rewalked > 0 or s_w <= sd.WARM + seg
+
+
+@pytest.mark.gpu
+def test_stride_fixpoint_scratch_geometry(cuda):
+    """The kernel's checkpoint scratch size is segment_geometry's, and a
+    fixpoint launch with a shorter scratch is refused."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    lib = sd._kernel_lib()
+    for s_w in (1, 5, 32, 77, 512, 513, 1024):
+        assert lib.gt_stride_ckpt_words(s_w) == sd.segment_geometry(s_w)[3]
+    dfa = compile_multi([rb"a[0-9]*b"]).dfa
+    t = sd.StrideDfaTables(dfa, sd.stride_plan(dfa))
+    w = torch.from_numpy(_stride_words(1, 32)).to(cuda)
+    need = sd.segment_geometry(32)[3]
+    ckpt = torch.empty(need - 1, dtype=torch.int32, device=cuda)
+    out = [torch.empty(n, dtype=torch.int32, device=cuda) for n in (128 * LANES, 32 * 8 * LANES,
+                                                                    128 * LANES, 2)]
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    err = lib.gt_stride_fixpoint(*sd._launch_args(w, t, 32), 24, out[0].data_ptr(),
+                                 ckpt.data_ptr(), ckpt.numel(), out[1].data_ptr(),
+                                 out[2].data_ptr(), out[3].data_ptr(), counter.data_ptr(),
+                                 *sd._dev_tail(cuda))
+    assert err != 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("max_rounds", [24, 2])
 def test_stride_fixpoint_matches_plain(cuda, monkeypatch, max_rounds):
@@ -360,6 +420,35 @@ def test_fused_kernel_matches_plain(cuda, kind):
         torch.cuda.synchronize()
         for g, x in zip(got, want):
             assert g.dtype == x.dtype and torch.equal(g, x), (i, sc.cw_shapes)
+        assert int(got[0].item()) > 0
+
+
+@pytest.mark.gpu
+def test_fused_kernel_batch4_matches_plain(cuda):
+    """The ensemble DeviceScanner builds for the 100-literal + 10-regex
+    batch: two 16-literal buckets, one of 2, 5 banks, 3 sequences."""
+    from grab_tpu_torch.ops import fused as fu
+    from grab_tpu_torch.regex.compiler import compile_multi
+    from grab_tpu_torch.scan_pipeline import DeviceScanner
+
+    # tests/test_mixed_batch.py build()'s patterns, without its JAX imports
+    rng = np.random.default_rng(12)
+    pats = [bytes(rng.integers(97, 123, size=int(rng.integers(7, 12)), dtype=np.uint8))
+            for _ in range(100)]
+    pats += [rb"foo[a-z]{2,6}bar", rb"[0-9]{3}-[0-9]{4}", rb"qu+x", rb"colou?r",
+             rb"abc(def|ghi)jkl", rb"w[xyz]{3}w", rb"nee+dle", rb"[A-Z]{5}99",
+             rb"zz(?:a|b|c)zz", rb"end\.x"]
+    sc = DeviceScanner(compile_multi(pats), buf_size=1 << 20, device="cpu").members[0]
+    assert type(sc) is fu.FusedEnsembleScanner and len(sc.seqs) == 3
+    plants = [b"555-1234", b"QWERT99", b"quuux"] + pats[:5]
+    for i, kind in enumerate(("text", "binary", "zeros")):
+        w = torch.from_numpy(_words(kind, plants, 20 + i)).to(cuda)
+        got = fu.fused_word_flags(w, sc)
+        bm = fu.fused_bitmap_torch(w, sc)
+        want = cw.packed_block_flags(bm) + (bm,)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), kind
         assert int(got[0].item()) > 0
 
 

@@ -271,6 +271,72 @@ def test_wrappers_reject_bad_geometry(bad):
         port.stride_dfa_scan(w2, t, e2)
 
 
+# -- the kernel's segment geometry (csrc/stridedfa.cu mirrors it) ---------
+
+
+@pytest.mark.parametrize("s_w", [1, 5, 8, 13, 32, 64, 77, 128, 512, 513, 1024, 5000])
+def test_segment_geometry(s_w):
+    """Tiles of SEGMENTS segments cover the word steps once, a segment
+    holds at most SEG_MAX words (its hits fit 64 bits), a checkpoint
+    every CKPT words, and the scratch is one int32 per checkpoint and
+    stream."""
+    seg, tiles, n_ck, scratch = port.segment_geometry(s_w)
+    assert 1 <= seg <= port.SEG_MAX <= 64
+    assert (tiles - 1) * port.SEGMENTS * seg < s_w <= tiles * port.SEGMENTS * seg
+    assert seg == min(port.SEG_MAX, -(-s_w // port.SEGMENTS))
+    assert (n_ck - 1) * port.CKPT < seg <= n_ck * port.CKPT
+    assert scratch == tiles * port.SEGMENTS * n_ck * N_STREAMS
+    assert port.WARM <= port.CKPT  # the warm-up is one chunk
+
+
+def test_segment_geometry_of_the_main_buffer():
+    """32 MiB: 512 word steps = one tile of 8 segments of 64 words, a
+    4 MiB checkpoint scratch; the longest chain is a segment and its
+    warm-up."""
+    assert port.segment_geometry(512) == (64, 1, 8, (4 << 20) // 4)
+    assert [port.chain_links(512, k) for k in (4, 2, 1)] == [72, 144, 288]
+    assert port.chain_links(1024, 2) == 2 * 144  # two tiles in turn
+    assert port.chain_links(5, 2) == (1 + 5) * 2
+
+
+@pytest.mark.parametrize("s_w", [0, -3])
+def test_segment_geometry_rejects_bad_steps(s_w):
+    with pytest.raises(ValueError):
+        port.segment_geometry(s_w)
+
+
+def test_fixup_words_is_zero_on_the_cpu():
+    """The plain walk has no fix-up: nothing to count, no device."""
+    assert port.fixup_words(torch.device("cpu")) == 0
+    assert port.fixup_words(torch.device("cpu"), reset=True) == 0
+
+
+@pytest.mark.parametrize("entries", ["start", "random"])
+@pytest.mark.parametrize("s_w", [8, 13])
+def test_plain_walk_non_synchronising(s_w, entries):
+    """Q(?:[a-z]{2})*Q over one Q per stream and lowercase letters: the
+    state carries the parity since the Q (a guess from the start state
+    never has it, the kernel's worst case); the plain walk equals the
+    reference's numpy oracle, at word-step counts that are and are not
+    a multiple of the segment count."""
+    a, b = _tables(rb"Q(?:[a-z]{2})*Q")
+    assert (b.mode, b.k) == ("run", 2) and b.n_states == 4
+    rng = np.random.default_rng(s_w)
+    raw = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8), size=(N_STREAMS, 4 * s_w))
+    raw[:, 0] = ord("Q")
+    w2d = np.ascontiguousarray(raw.reshape(-1).view("<i4").reshape(N_STREAMS, s_w).T)
+    w2d = w2d.reshape(s_w * STREAM_ROWS, LANES)
+    if entries == "start":
+        ent = np.full((STREAM_ROWS, LANES), a.start, np.int32)
+    else:
+        ent = rng.integers(0, a.n_states, (STREAM_ROWS, LANES), dtype=np.int32)
+    bm_np, ex_np = ref.np_stride_scan(w2d, a, ent)
+    bm, ex = port.stride_dfa_scan(torch.from_numpy(w2d), b, torch.from_numpy(ent))
+    assert np.array_equal(bm.numpy(), bm_np) and np.array_equal(ex.numpy(), ex_np)
+    # one Q per stream closes a match only from an entry inside one
+    assert bm_np.any() == (entries == "random")
+
+
 # -- DeviceScanner routing: modes, member types and flags ------------------
 
 ROUTES = [
