@@ -19,7 +19,10 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          boundaries, at lane 127 and in the last word;
        - B4 class sequences (same geometry) with sets of 1, 8 and 32
          sequences, classes with bytes >= 0x80, the same data kinds and
-         hit placements;
+         hit placements, also at 2045 groups (a multiple of 32 rows that
+         no block of 8 groups divides) and at 40 MiB, with the
+         profiler's split of its device time into the kernel body and
+         the stream operations around it;
        - B2 strided-DFA walk (stream-major [512 * 128, 128], stride
          2048 B) for a plan of every family the planner emits (run k=4,
          k=2, k=1, runp, cls k=4 and k=2, 16-bit run and cls), start and
@@ -35,7 +38,8 @@ card, and fails (non-zero exit, no result line) if any phase fails:
        - B3 alphabet runs: coarse runs of 1, 2, 4 and 8 words and fine
          runs of 1, 2 and 4 bytes, ranges with byte 0 (the pad rows are
          members) and with bytes >= 0x80, runs planted across row,
-         32-row group and buffer-end boundaries;
+         32-row group and buffer-end boundaries; at 2045 groups and at
+         40 MiB too, and split as B4 is;
        - B5 XOR filter: 5, 40, 100 and 1000 literals of 7-11 bytes
          (remainder groups of arity 1 and 3 beside up to 10 full groups),
          needles at every phase, and a buffer of NUL words;
@@ -99,7 +103,8 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      version, a device-to-device copy of the same bytes and the kernel's
      bound; the last-resort walk per 32 MiB buffer; then a miss or
      near-miss scan per route over the full-size trees: end-to-end
-     rate, device idle share and the profiler's kernel times;
+     rate, device idle share, the profiler's kernel times and the
+     memsets and copies on the stream per scan;
   6. the card's name and power limit, a ``{"kernels": [...]}`` line and,
      last, ``{"ok": true, "device": {...}}``.
 
@@ -220,18 +225,57 @@ def time_cuda(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def word_kernel_case(torch, label, bufs, kernel, plain, ops, rate, extra):
+ODD_ROWS = ROWS - 3 * 32  # 2045 groups: a multiple of 32 rows, of no larger block
+ROWS_40M = (40 << 20) // 512  # 40 MiB, as B2's tiles are checked
+
+
+def reshaped(np, words, rows: int):
+    """A word buffer of ``rows`` rows (+ 8 zero pad rows) cut from, or
+    repeated out of, a [ROWS + 8, 128] one; its last 64 bytes are the
+    source's last 64, so a hit ends in the buffer's last word."""
+    body = np.resize(words[:ROWS], (rows, 128))
+    body[-1, -16:] = words[ROWS - 1, -16:]
+    return np.concatenate([body, np.zeros((8, 128), dtype=words.dtype)])
+
+
+def profile_split(torch, fn, iters: int = 20):
+    """Device ms per call of fn(i), by the profiler's names: the kernel
+    body apart from the stream operations queued around it (memsets,
+    copies). → {name: mean ms per recorded op} (the mean over the ops the
+    profiler recorded, which may be fewer than the calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if t and e.count:
+            out[e.key] = t / 1e3 / e.count
+    return out
+
+
+def word_kernel_case(torch, label, bufs, kernel, plain, ops, rate, extra, shapes=False):
     """One word kernel on the card against its plain version, bit for
     bit, on every buffer of ``bufs`` ({kind: host int32 [ROWS + 8,
-    128]}); then its time, the plain version's, a device copy's and the
-    bound, on the text buffer. kernel(w) → (total, packed, bm);
-    plain(w) → bm; ops: int32 operations the test needs on the text
-    buffer (a number, or a function of the device buffer)."""
+    128]}), and with ``shapes`` also on each cut to ODD_ROWS rows and
+    grown to 40 MiB, plus the profiler's split of its device time into
+    the kernel body and the stream operations around it; then its time,
+    the plain version's, a device copy's and the bound, on the text
+    buffer. kernel(w) → (total, packed, bm); plain(w) → bm; ops: int32
+    operations the test needs on the text buffer (a number, or a
+    function of the device buffer)."""
     from grab_tpu_torch.ops import corewords as cw
+    import numpy as np
 
     dev = torch.device("cuda")
-    dev_bufs = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
-    for dname, w in dev_bufs.items():
+
+    def agree(w, dname):
         check(w.is_cuda, f"{dname} buffer is not on the card")
         total, packed, bm = kernel(w)
         torch.cuda.synchronize()
@@ -245,6 +289,14 @@ def word_kernel_case(torch, label, bufs, kernel, plain, ops, rate, extra):
             f"(total {int(total.item())} vs {int(total_ref.item())})",
         )
         check(int(total.item()) > 0, f"{label}: planted hits not flagged on {dname}")
+
+    dev_bufs = {k: torch.from_numpy(v).to(dev) for k, v in bufs.items()}
+    for dname, w in dev_bufs.items():
+        agree(w, dname)
+    if shapes:
+        for dname, v in bufs.items():
+            for rows in (ODD_ROWS, ROWS_40M):
+                agree(torch.from_numpy(reshaped(np, v, rows)).to(dev), f"{dname} {rows} rows")
     first = next(iter(dev_bufs.values()))
     ring = [first] + [first.clone() for _ in range(3)]
     ms = time_cuda(torch, lambda i: kernel(ring[i % 4]), 40)
@@ -261,6 +313,10 @@ def word_kernel_case(torch, label, bufs, kernel, plain, ops, rate, extra):
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
                bytes=in_bytes + out_bytes, int32_ops=n_ops)
+    if shapes:
+        res["device_ms_by_name"] = split = profile_split(torch, lambda i: kernel(ring[i % 4]))
+        log(f"{label}: also == plain at {ODD_ROWS} and {ROWS_40M} rows; device ms per launch "
+            f"by name: {split}")
     log(f"{label}: kernel == plain, bit for bit, on {'/'.join(dev_bufs)}; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, d2d copy {copy_ms:.4f} ms, bound "
         f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, int32 ops {ops_ms:.4f})")
@@ -483,12 +539,25 @@ def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
         t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         if t:
             by_name[e.key] = {"ms": t / 1e3, "count": e.count}
+    # the stream operations beside the kernels: memsets, and the copies
+    # to the card split at 0.05 ms into batch uploads and small ones
+    # (a descriptor)
+    stream_ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name.startswith(("Memset", "Memcpy")):
+            dur = (e.time_range.end - e.time_range.start) / 1e3
+            key = e.name if e.name.startswith("Memset") or dur >= 0.05 else e.name + " < 0.05 ms"
+            op = stream_ops.setdefault(key, {"count": 0, "ms": 0.0})
+            op["count"] += 1
+            op["ms"] += dur
+    kernel_ms = {k: v for k, v in by_name.items() if any(c in k for c in counter.split())}
     idle = None if not spans else max(0.0, 1.0 - busy / wall_us)
     log(f"profiled scan: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy / 1e3:.1f} ms, idle share "
         f"{'not measured (no device events)' if idle is None else f'{idle:.4f}'}")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:8]:
         log(f"  device ms {v['ms']:.3f} over {v['count']} calls  {k}")
+    log(f"  the {counter} kernels per scan: {kernel_ms}; stream copies and memsets: {stream_ops}")
     return {
         "argv": [a if a != tree else os.path.basename(tree) for a in argv],
         "stdout_bytes": len(out), "bytes": nbytes, "walls_s": walls, "gbps": gbps,
@@ -496,6 +565,7 @@ def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
         "device_batches": st.device_batches, "stats": st.summary(),
         "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": idle, "device_ms_by_name": by_name, "host": host,
+        "kernel_ms": kernel_ms, "stream_ops": stream_ops,
     }
 
 
@@ -585,12 +655,13 @@ def seq_needle(seq, rng) -> bytes:
 
 
 def b4_ops(torch, w, seqs) -> int:
-    """Integer operations the kernel's test needs on these words: per
+    """Integer operations the SWAR form (1-8 sequences) needs on these
+    words: per
     sequence evaluated before the word's first hit, the classes tested
     (all 4 phases at once) until no phase is left or the sequence ends,
     each 4 ops (funnel shift, 7-bit mask, high-bit mask, AND into the
-    live phases) plus 6 per range (two 4-byte compares of an add and a
-    3-input logic op each, AND-NOT, OR)."""
+    live phases) plus 5 per range (two 4-byte compares of an add and a
+    3-input logic op each, one 3-input AND-NOT-OR)."""
     rows = w.shape[0] - 8
     n = rows * 128
     data = w.view(torch.uint8).reshape(-1)
@@ -600,13 +671,35 @@ def b4_ops(torch, w, seqs) -> int:
         live = alive.unsqueeze(1).repeat(1, 4)  # [word, phase]
         for j, ranges in enumerate(seq):
             tested = live.any(dim=1)
-            ops += int(tested.sum()) * (4 + 6 * len(ranges))
+            ops += int(tested.sum()) * (4 + 5 * len(ranges))
             b = torch.stack([data[p + j : p + j + 4 * n : 4] for p in range(4)], dim=1)
             member = torch.zeros_like(live)
             for lo, hi in ranges:
                 member |= (b >= lo) & (b <= hi)
             live &= member
         alive &= ~live.any(dim=1)
+    return ops
+
+
+def b4_table_ops(torch, w, seqs) -> int:
+    """Integer operations the table form needs on these words (9-32
+    sequences, csrc/classseq.cu): per start byte, the classes read until
+    the AND of their sequence bits is zero or the longest sequence ends,
+    each 4 ops (byte extract, address, shared-memory read, AND)."""
+    import numpy as np
+
+    from grab_tpu_torch.ops import classseq as cq
+
+    raw = cq.seq_tables(seqs)
+    span = int(raw[:4].view("<i4")[0])
+    t = torch.from_numpy(raw[8:].view("<u4").astype(np.int64).reshape(8, 256)).to(w.device)
+    n = (w.shape[0] - 8) * 128 * 4
+    data = w.view(torch.uint8).reshape(-1).to(torch.int64)
+    alive = t[0][data[:n]]
+    ops = 4 * n
+    for j in range(1, span):
+        ops += 4 * int((alive != 0).sum())
+        alive &= t[j][data[j : n + j]]
     return ops
 
 
@@ -621,7 +714,9 @@ def phase_classseq(torch, np, rng, rate):
             torch, f"class sequences {name} ({len(seqs)} sequences)",
             kernel_buffers(np, rng, needles),
             lambda w: cs.classseq_flags(w, seqs), lambda w: cs.classseq_bitmap_torch(w, seqs),
-            lambda w: b4_ops(torch, w, seqs), rate, {"set": name, "seqs": len(seqs)}))
+            (lambda w: b4_table_ops(torch, w, seqs)) if len(seqs) >= cs.TABLE_MIN_SEQS
+            else (lambda w: b4_ops(torch, w, seqs)), rate, {"set": name, "seqs": len(seqs)},
+            shapes=True))
     return results
 
 
@@ -894,20 +989,21 @@ def phase_alpharun(torch, np, rng, rate):
     for name, ranges, plans in ALPHA_CASES:
         bufs = run_buffers(np, rng, ranges)
         for mode, units in plans:
-            # per word: 6 ops per range for the 4 bytes (two SWAR compares
-            # of an add and a logic op each, AND-NOT, OR) and the 7-bit
-            # mask, on one word (coarse) or two (fine); then the run: a
-            # compare, a funnel shift, AND, compare (coarse), or two
-            # shift-ANDs per halving, mask, compare (fine); 2 to fold the
-            # hit into the bitmap word
-            per_word = (6 * len(ranges) + 1) * (1 if mode == "coarse" or units == 1 else 2)
+            # per word: 5 ops per range for the 4 bytes (two SWAR compares
+            # of an add and a 3-input logic op each, one 3-input AND-NOT-OR)
+            # and the 7-bit mask, once per word (a run into word w + 1
+            # reuses w + 1's own test); then the run: a compare, a funnel
+            # shift, AND, compare (coarse), or two shift-ANDs per halving,
+            # mask, compare (fine); 2 to fold the hit into the bitmap word
+            per_word = 5 * len(ranges) + 1
             per_word += 4 if mode == "coarse" else 2 * (units.bit_length() - 1) + 2
             results.append(word_kernel_case(
                 torch, f"alpha-run {name} {mode} {units}", bufs,
                 lambda w: ar.alpharun_flags(w, ranges, mode, units),
                 lambda w: ar.alpharun_bitmap_torch(w, ranges, mode, units),
                 (per_word + 2) * ROWS * 128, rate,
-                {"set": name, "ranges": len(ranges), "mode": mode, "units": units}))
+                {"set": name, "ranges": len(ranges), "mode": mode, "units": units},
+                shapes=True))
     return results
 
 

@@ -8,7 +8,8 @@ comma-separated list of torch devices names the -n N shard devices.
 ``--via <socket>`` as the first argument sends the rest to a running
 scan server (grab_tpu_torch.server). What the port does not serve yet
 is refused with one stderr line naming its ROADMAP item and exit 255:
-multi-host (--hosts / JAX_NUM_PROCESSES).
+recursive multi-host (-r with --hosts / JAX_NUM_PROCESSES); without -r,
+multi-host gets the reference's own refusal.
 
 Flag surface mirrors the reference exactly
 (greppin src/main.cc:103-161 + greppin extensions,
@@ -36,7 +37,8 @@ README.md:16-31):
           torch.profiler trace of the whole scan, written to
           D/trace.json (Chrome trace format)
   --hosts N --pid P --coordinator HOST:PORT, --outdir D
-          multi-host mode: not ported yet (ROADMAP A11), refused
+          multi-host mode: recursive only, as in the reference; the
+          recursive scan is not ported yet (ROADMAP A11), refused
 
 Exit codes follow the reference: 0 on success regardless of matches,
 255 on setup errors (SURVEY §3.5).
@@ -185,13 +187,6 @@ class _TorchTrace:
         return False
 
 
-def _refusal(opts) -> Optional[str]:
-    """The stderr line for a mode the port does not serve yet."""
-    if opts is not None and (opts["hosts"] or os.environ.get("JAX_NUM_PROCESSES")):
-        return "tpugrep: multi-host mode is not ported yet (ROADMAP A11)"
-    return None
-
-
 def main(
     argv: Optional[List[str]] = None, out=None, err=None, engine_factory=None
 ) -> int:
@@ -224,10 +219,6 @@ def main(
     if err is None:
         err = sys.stderr
     opts, chunk_size, args = parse_args(argv)
-    refused = _refusal(opts)
-    if refused:
-        print(refused, file=err)
-        return 255
     if opts is None or len(args) < 2:
         out.write(USAGE.format(p=prog).encode())
         return 1
@@ -290,6 +281,7 @@ def main(
         trace_ctx = _TorchTrace(opts["trace"])
 
     t0 = time.time()
+    nbytes = 0
 
     manifest = None
     if opts["resume"]:
@@ -297,9 +289,21 @@ def main(
 
         manifest = ResumeManifest(opts["resume"])
 
+    if opts["hosts"] or os.environ.get("JAX_NUM_PROCESSES"):
+        if not opts["recursive"]:
+            print("Multihost support only for recursive grabs.", file=err)
+        else:
+            print("tpugrep: multi-host mode is not ported yet (ROADMAP A11)", file=err)
+        return 255
+
     with trace_ctx:
         if opts["recursive"]:
-            engine.find_recursive(paths[0], emit, manifest=manifest)
+            if opts["cores"] > 1 and manifest is None:
+                from grab_tpu_torch.parallel.runner import run_parallel
+
+                nbytes = run_parallel(engine, paths[0], emit, opts["cores"])
+            else:
+                engine.find_recursive(paths[0], emit, manifest=manifest)
         else:
             for p in paths:
                 if engine.scan_file(p, emit) < 0:
@@ -309,7 +313,12 @@ def main(
 
     if opts["stats"]:
         dt = time.time() - t0
-        print(f"tpugrep: {dt:.3f}s | {engine.stats.summary()}", file=err)
+        print(
+            f"tpugrep: {dt:.3f}s"
+            + (f", {nbytes / dt / 1e9:.2f} GB/s" if nbytes else "")
+            + f" | {engine.stats.summary()}",
+            file=err,
+        )
     return 0
 
 

@@ -1,4 +1,4 @@
-// The class-sequence test shared by classseq.cu and fused.cu.
+// The class-sequence test of fused.cu (classseq.cu has its own forms).
 //
 // A sequence is up to 8 byte classes, each class up to 8 inclusive byte
 // ranges. Byte position i is a hit when, for some sequence, byte i + j

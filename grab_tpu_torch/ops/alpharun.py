@@ -40,8 +40,8 @@ from grab_tpu_torch.ops.corewords import (
     PAD_ROWS,
     bitmap_rows_torch,
     check_words,
+    counted_launch_args,
     decode_packed_flags,
-    launch_args,
     packed_block_flags,
 )
 
@@ -158,6 +158,65 @@ def alpharun_bitmap_torch(
     return bitmap_rows_torch(hit_w[: rows * LANES].view(rows, LANES))
 
 
+def alpharun_bitmap_swar(
+    words2d: torch.Tensor, ranges: Sequence[Tuple[int, int]], mode: str, units: int
+) -> torch.Tensor:
+    """The kernel's own arithmetic in PyTorch (csrc/alpharun.cu), for the
+    tests to hold it to the plain version on the CPU: membership of the 4
+    bytes of a word by the SWAR compares of the bounds' constants, one
+    code per lane of 4 words and row (coarse: a bit per word wholly in
+    the alphabet; fine: a bit per member byte), and the codes past a
+    lane's last word taken as the warp's shuffles take them (lane l + 1,
+    lane l + 2; lanes 30 and 31 from the next row) → int32 [rows/32, 128]."""
+    from grab_tpu_torch.ops.classseq import swar_bound
+
+    rows = words2d.shape[0] - PAD_ROWS
+    x = words2d.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    xl = x & 0x7F7F7F7F
+    m = torch.zeros_like(x)
+    for lo, hi in ranges:
+        ge = []
+        for bound in (lo, hi + 1):
+            add, keep = swar_bound(bound)
+            t = (xl + add) & 0xFFFFFFFF
+            ge.append((t & (x | keep)) | (x & keep))
+        m |= ge[0] & ~ge[1]
+    m = (m & 0x80808080).view(-1, 32, 4)  # [row, lane, word of the lane]
+    if mode == "coarse":
+        per_word = (m == 0x80808080).to(torch.int64)  # wholly in the alphabet
+        shifts = torch.arange(4)
+    elif units == 1:
+        per_word = (m != 0).to(torch.int64)  # a member byte
+        shifts = torch.arange(4)
+    else:
+        per_word = ((m * 0x00204081) & 0xFFFFFFFF) >> 28  # the byte bits
+        shifts = 4 * torch.arange(4)
+    code = (per_word << shifts).sum(dim=2)  # [row, lane]
+    cur = code[:rows]
+    ks = torch.arange(4)
+    if units == 1:  # the code is the hits
+        hits = ((cur.unsqueeze(2) >> ks) & 1) != 0
+    else:
+        lane = torch.arange(32)
+        nb = (cur & 15) | (code[1 : rows + 1] & 15) << 4
+        s1 = nb.roll(-1, dims=1)
+        next1 = torch.where(lane < 31, s1 & 15, s1 >> 4)
+        if mode == "coarse":
+            win = cur | next1 << 4
+            if units > 4:
+                s2 = nb.roll(-2, dims=1)
+                win |= torch.where(lane < 30, s2 & 15, s2 >> 4) << 8
+            want = (1 << units) - 1
+            hits = ((win.unsqueeze(2) >> ks) & want) == want
+        else:
+            r = cur | next1 << 16
+            r &= r >> 1
+            if units >= 4:
+                r &= r >> 2
+            hits = ((r.unsqueeze(2) >> (4 * ks)) & 15) != 0
+    return bitmap_rows_torch(hits.reshape(rows, LANES))
+
+
 def _check_plan(ranges, mode: str, units: int) -> None:
     if not ranges or len(ranges) > MAX_RANGES:
         raise ValueError(f"need 1..{MAX_RANGES} ranges, got {len(ranges)}")
@@ -187,6 +246,7 @@ def _kernel_lib():
             ctypes.c_void_p,  # bm
             ctypes.c_void_p,  # packed
             ctypes.c_void_p,  # total
+            ctypes.c_void_p,  # count scratch of the stream
             ctypes.c_int,  # device index
             ctypes.c_void_p,  # stream
         ]
@@ -207,9 +267,11 @@ def alpharun_flags(
         bm = alpharun_bitmap_torch(words2d, ranges, mode, units)
         total, packed = packed_block_flags(bm)
         return total, packed, bm
+    if words2d.data_ptr() % 16:
+        raise ValueError("words2d must be 16-byte aligned on the card")
     lo = np.array([r[0] for r in ranges], dtype=np.int32)
     hi = np.array([r[1] for r in ranges], dtype=np.int32)
-    outs, tail = launch_args(rows, words2d.device)
+    outs, tail = counted_launch_args(rows, words2d.device)
     err = _kernel_lib()(
         words2d.data_ptr(), lo.ctypes.data, hi.ctypes.data, len(ranges),
         int(mode == "coarse"), units, *tail

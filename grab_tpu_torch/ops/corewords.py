@@ -258,6 +258,34 @@ def launch_args(rows: int, dev: torch.device):
     return (total, packed, bm), tail
 
 
+_COUNT_SCRATCH = {}
+
+
+def count_scratch(dev: torch.device) -> torch.Tensor:
+    """The two-word device scratch (count, blocks done; one 8-byte
+    atomic) through which the
+    kernels of csrc/group_count.cuh (alpharun.cu, classseq.cu)
+    count ``total`` without a memset before each launch: one per (device,
+    current stream), zeroed once. Every launch leaves it zero, and the
+    launches that share it are ordered by their stream, so two streams
+    never share one."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    scratch = _COUNT_SCRATCH.get(key)
+    if scratch is None:
+        scratch = _COUNT_SCRATCH.setdefault(
+            key, torch.zeros(2, dtype=torch.int32, device=torch.device("cuda", index)))
+    return scratch
+
+
+def counted_launch_args(rows: int, dev: torch.device):
+    """launch_args for the kernels that count ``total`` themselves: the
+    same outputs, and (groups, bm, packed, total, the stream's count
+    scratch, device index, stream)."""
+    outs, tail = launch_args(rows, dev)
+    return outs, tail[:4] + (count_scratch(dev).data_ptr(),) + tail[4:]
+
+
 def _kernel_lib():
     from grab_tpu_torch import _build
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the strided-DFA walk (B2) and the fused ensemble (B6) of the
-grab_tpu_torch port on one CUDA card, in the checkout it runs from.
+"""Times kernels of the grab_tpu_torch port on one CUDA card, in the
+checkout it runs from: the strided-DFA walk (B2), the fused ensemble
+(B6), the alphabet runs (B3) and the class sequences (B4).
 
-    python3 kernel_ab.py [stride|fused|both]
+    python3 kernel_ab.py [stride|fused|both|alpha|seq]
 
 Run it from the root of two checkouts in turns (A, B, B, A) on one
 card, one after the other, to compare two versions of the kernels: both
@@ -14,9 +15,14 @@ with start entries, the non-synchronising automaton over one Q per
 stream, the scanner's fixpoint and window passes (these include the
 gaps between their queued launches), and the fused ensembles of
 chip_smoke.phase_fused plus single-member ensembles (the filter, the
-sequences, one bucket) that split the fused time into its members.
+sequences, one bucket) that split the fused time into its members;
+``alpha`` every plan of chip_smoke.ALPHA_CASES and ``seq`` every set of
+chip_smoke.seq_sets on their text buffers, each beside the profiler's
+device ms per launch by name (the kernel body, and the memsets and
+copies queued on the stream around it).
 """
 
+import importlib.util
 import json
 import os
 import sys
@@ -99,6 +105,49 @@ def fused_times(rng, dev):
             for name, sc in sets.items()}
 
 
+def own_smoke():
+    """The chip_smoke.py beside this script (its profile_split), which
+    the other checkout's may lack."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed(fn, split):
+    """{ms: events, the better of two runs of 40; by_name: profiler}."""
+    ms = min(cs.time_cuda(torch, fn, 40) for _ in range(2))
+    return {"ms": ms, "by_name": split(torch, fn)}
+
+
+def alpha_times(rng, dev):
+    from grab_tpu_torch.ops import alpharun as ar
+
+    split = own_smoke().profile_split
+    res = {}
+    for name, ranges, plans in cs.ALPHA_CASES:
+        text = torch.from_numpy(cs.run_buffers(np, rng, ranges)["text"]).to(dev)
+        ring = [text] + [text.clone() for _ in range(3)]
+        for mode, units in plans:
+            res[f"{name} {mode} {units}"] = timed(
+                lambda i: ar.alpharun_flags(ring[i % 4], ranges, mode, units), split)
+    return res
+
+
+def seq_times(rng, dev):
+    from grab_tpu_torch.ops import classseq as cq
+
+    split = own_smoke().profile_split
+    res = {}
+    for name, seqs in cs.seq_sets(np, rng).items():
+        needles = [cs.seq_needle(s, rng) for s in seqs]
+        text = torch.from_numpy(cs.kernel_buffers(np, rng, needles)["text"]).to(dev)
+        ring = [text] + [text.clone() for _ in range(3)]
+        res[name] = timed(lambda i: cq.classseq_flags(ring[i % 4], seqs), split)
+    return res
+
+
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "both"
     if not torch.cuda.is_available():
@@ -111,6 +160,10 @@ def main() -> int:
         out["stride_ms"] = stride_times(rng, dev)
     if what in ("both", "fused"):
         out["fused_ms"] = fused_times(rng, dev)
+    if what == "alpha":
+        out["alpha"] = alpha_times(rng, dev)
+    if what == "seq":
+        out["seq"] = seq_times(rng, dev)
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

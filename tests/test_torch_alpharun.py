@@ -180,3 +180,38 @@ def test_alpha_flags_match_reference(pattern, mode, buf_size):
     assert got.dtype == want.dtype and np.array_equal(got, want) and got.sum() > 0
     clean = rng.integers(103, 123, size=buf_size, dtype=np.uint8)  # g-z only
     assert p.scan(clean).sum() == r.scan(clean).sum() == 0
+
+
+# the kernel's plans and a min_len the reference planner maps to each
+PLAN_MIN_LEN = {("coarse", 1): 7, ("coarse", 2): 11, ("coarse", 4): 19, ("coarse", 8): 35,
+                ("fine", 1): 1, ("fine", 2): 2, ("fine", 4): 4}
+
+
+def _ranges_of_count(n: int):
+    """n disjoint ranges; an even count holds byte 0 (the pad rows are
+    members), counts over 4 hold bytes >= 0x80."""
+    out = [(30 * i + 20, 30 * i + 24 + i) for i in range(n)]
+    if n % 2 == 0:
+        out[0] = (0, 0)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("plan", list(PLAN_MIN_LEN), ids=lambda p: f"{p[0]}{p[1]}")
+@pytest.mark.parametrize("n_ranges", range(1, 9))
+def test_kernel_arithmetic_matches_reference(n_ranges, plan):
+    """csrc/alpharun.cu's arithmetic (one code per lane of 4 words, the
+    neighbour codes as the warp's shuffles take them, lanes 30 and 31
+    from the next row), written out in PyTorch, against the reference's
+    numpy oracle on text and binary buffers with runs across row, group
+    and buffer-end boundaries: the codes and their shuffles are held
+    here, the kernel itself on the card."""
+    ranges = _ranges_of_count(n_ranges)
+    mode, units = plan
+    assert ref.plan_for(PLAN_MIN_LEN[plan]) == plan
+    hits = 0
+    for kind in ("text", "binary"):
+        w2d = _buffer(kind, ranges, seed=10 * n_ranges + units)
+        bm = port.alpharun_bitmap_swar(torch.from_numpy(w2d), ranges, mode, units)
+        assert (bm.numpy() == ref.np_alpharun_bitmap(w2d, ranges, PLAN_MIN_LEN[plan])).all()
+        hits += int((bm != 0).sum())
+    assert hits > 0

@@ -160,13 +160,14 @@ def test_descriptor_layout():
 @pytest.mark.parametrize("kind", ["text", "binary", "zeros"])
 @pytest.mark.parametrize("mask_set", MASK_SETS, ids=IDS)
 def test_kernel_arithmetic_matches_reference(mask_set, kind):
-    """The CUDA kernel's SWAR arithmetic (4 phases per word, the
-    descriptor's compare constants), written out in PyTorch, against the
-    reference's numpy oracle: the descriptor and the 4-byte compares are
-    held here, the kernel itself on the card."""
+    """The CUDA kernel's arithmetic (up to 8 sequences: 4 phases per
+    word, the descriptor's SWAR compare constants; more: the sequence-bit
+    tables), written out in PyTorch, against the reference's numpy
+    oracle: the descriptors and the compares are held here, the kernel
+    itself on the card."""
     seqs = ref_cp.compile_sequences(mask_set)
     w2d = _buffer(kind, mask_set, seed=7 + len(mask_set))
-    bm = port.classseq_bitmap_swar(torch.from_numpy(w2d), seqs)
+    bm = port.classseq_bitmap_kernel(torch.from_numpy(w2d), seqs)
     assert (bm.numpy() == ref.np_classseq_bitmap(w2d, seqs)).all()
 
 
@@ -236,3 +237,92 @@ def test_class_seq_flags_match_reference(pats, literal, buf_size):
     want = r.scan(buf)
     got = p.resolve(p.submit(buf))
     assert got.dtype == want.dtype and np.array_equal(got, want) and got.sum() > 0
+
+
+def test_seq_params_constants_match_bound():
+    """The host-made SWAR constants of B4's descriptor (swar_bounds, one
+    call for all bounds) against Bound's formula (swar_bound) for every
+    bound 0..256, and what they compute against "byte >= b" for every
+    byte value."""
+    b = np.arange(257)
+    add, keep = port.swar_bounds(b)
+    assert add.dtype == np.uint32
+    for i in range(257):
+        assert (int(add[i]), 0xFFFFFFFF if keep[i] else 0) == port.swar_bound(i)
+    x = np.arange(256, dtype=np.int64)[None, :]
+    t = ((x & 0x7F) + (add.astype(np.int64)[:, None] & 0xFF)) & 0xFF
+    k = np.where(keep, 0xFF, 0)[:, None]
+    ge = (((t & (x | k)) | (x & k)) & 0x80) != 0
+    assert (ge == (x >= b[:, None])).all()
+
+
+def _params_sequences(params: np.ndarray):
+    """The sequences back from seq_params' bytes (each bound from its
+    add word and keep flag: b = 128 - add for keep, else 256 - add)."""
+    f = port.params_fields(params)
+    out = []
+    for s in range(int(f["head"][0])):
+        seq = []
+        for j in range(int(f["len"][s])):
+            ranges = []
+            for t in range(int(f["n_ranges"][s, j])):
+                b = []
+                for e in range(2):
+                    a = int(f["add"][s, j, t, e]) & 0xFF
+                    b.append(128 - a if (int(f["keep"][s, j]) >> (2 * t + e)) & 1 else 256 - a)
+                ranges.append((b[0], b[1] - 1))
+            seq.append(tuple(ranges))
+        out.append(tuple(seq))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("mask_set", MASK_SETS, ids=IDS)
+def test_seq_params_round_trip(mask_set):
+    """B4's SWAR descriptor holds the sequences: its size is
+    SeqParams<cap>'s for the least cap of 1 and 8 (larger sets take the
+    table form), and the bounds read back from its add words and keep
+    bits are the ranges; the fused kernel's SeqDesc bytes still
+    round-trip too."""
+    seqs = port.compile_sequences(mask_set)
+    if len(seqs) > 8:  # the table form's sets
+        with pytest.raises(ValueError):
+            port.seq_params(seqs)
+        assert port.kernel_descriptor(seqs) is port.seq_tables(seqs)
+    else:
+        p = port.seq_params(seqs)
+        assert p.dtype == np.uint8 and p.size == (548 if len(seqs) == 1 else 4304)
+        assert _params_sequences(p) == seqs
+        f = port.params_fields(p)
+        assert tuple(f["head"]) == (len(seqs), port.seq_span(seqs))
+        assert port.kernel_descriptor(seqs) is p
+    d = port.seq_descriptor(seqs)
+    n, span = d[:8].view("<i4")
+    lens, n_rng = d[8:40], d[40:296].reshape(32, 8)
+    lo, hi = d[296:2344].reshape(32, 8, 8), d[2344:].reshape(32, 8, 8)
+    back = tuple(tuple(tuple((int(lo[s, j, t]), int(hi[s, j, t])) for t in range(n_rng[s, j]))
+                       for j in range(lens[s])) for s in range(n))
+    assert back == seqs and span == port.seq_span(seqs)
+
+
+@pytest.mark.parametrize("kind", ["text", "binary", "zeros"])
+@pytest.mark.parametrize("mask_set", MASK_SETS, ids=IDS)
+def test_table_arithmetic_matches_reference(mask_set, kind):
+    """The table kernel's arithmetic (csrc/classseq.cu SeqTables: one
+    sequence bit per table entry, AND over the classes), written out in
+    PyTorch over seq_tables' bytes, against the reference's numpy
+    oracle; and the tables' bits hold exactly the classes."""
+    seqs = ref_cp.compile_sequences(mask_set)
+    w2d = _buffer(kind, mask_set, seed=11 + len(mask_set))
+    bm = port.classseq_bitmap_tables(torch.from_numpy(w2d), seqs)
+    assert (bm.numpy() == ref.np_classseq_bitmap(w2d, seqs)).all()
+    raw = port.seq_tables(seqs)
+    assert raw.size == 8 + 8 * 256 * 4
+    assert tuple(raw[:8].view("<i4")) == (port.seq_span(seqs), len(seqs))
+    t = raw[8:].view("<u4").reshape(8, 256)
+    for s, seq in enumerate(seqs):  # classes as compiled (capped at 8 ranges)
+        for j in range(8):
+            got = sum(1 << b for b in range(256) if (int(t[j, b]) >> s) & 1)
+            want = (sum(1 << b for lo, hi in seq[j] for b in range(lo, hi + 1))
+                    if j < len(seq) else (1 << 256) - 1)
+            assert got == want, (s, j)
+    assert not (t[0] >> len(seqs)).any()  # no bit past the last sequence

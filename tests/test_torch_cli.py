@@ -7,11 +7,13 @@ than the 2 MiB CPU scan buffer, so they span batches and their halos.
 The port runs with GRAB_TPU_TORCH_DEVICE=cpu: the kernels' plain
 PyTorch versions. Every single-device plan is served, -n N caps at the
 shard devices and prints what -n 1 prints, and --via goes to the scan
-server; multi-host, still out of the port, must exit 255 with one
-stderr line naming its ROADMAP item, never a quiet host replay.
+server; recursive multi-host, still out of the port, must exit 255 with
+one stderr line naming its ROADMAP item, never a quiet host replay, and
+multi-host without -r gets the reference's own line.
 """
 
 import io
+import re
 
 import numpy as np
 import pytest
@@ -261,6 +263,58 @@ def test_via_and_big_batches_refused(corpus, tmp_path, monkeypatch):
     argv = ["-H", "-r", "-O", str(pats), str(corpus)]
     rc, out, _ = _run(port_cli, argv)
     assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0 and out.count(b"\n") >= 4
+
+
+STATS_LINE = re.compile(r"^tpugrep: \d+\.\d{3}s, \d+\.\d{2} GB/s \| files=")
+
+
+def test_stats_with_n_prints_rate(corpus, monkeypatch):
+    """-r -n 2 --stats goes through run_parallel, as the reference's
+    does: its stderr line carries the GB/s figure, in the reference's
+    form, and stdout equals -n 1's and the reference's -n 2."""
+    from grab_tpu_torch.engine import Engine, EngineConfig
+    from grab_tpu_torch.parallel.runner import run_parallel
+
+    argv = ["-r", "-n", "2", "--stats", "needle", str(corpus)]
+    monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", "cpu,cpu")
+    rc, out, err = _run(port_cli, argv)
+    ref_rc, ref_out, ref_err = _run(ref_cli, argv)
+    assert rc == ref_rc == 0 and out == ref_out and out.count(b"\n") >= 4
+    assert STATS_LINE.match(err.strip()), err
+    assert STATS_LINE.match(ref_err.strip()), ref_err
+    one = _run(port_cli, ["-L", "-L", "-r", "needle", str(corpus)])
+    assert one[:2] == (0, out)  # -n N quarters the chunk as -L -L does
+    # the bytes it reports are the walked tree's, pruned files aside
+    eng = Engine([b"needle"], EngineConfig(device="cpu,cpu"))
+    want = sum(size for _path, size in eng._walk_iter(str(corpus)) if size >= 6)
+    eng = Engine([b"needle"], EngineConfig(device="cpu,cpu"))
+    assert run_parallel(eng, str(corpus), lambda b: None, 2) == want > 0
+    assert eng.cfg.n_shards == 2 and eng._scanner.n_shards == 2
+    # a scanner cached for another shard count is dropped, not reused
+    old = eng._scanner
+    assert run_parallel(eng, str(corpus), lambda b: None, 1) == want
+    assert eng._scanner is not old
+
+
+@pytest.mark.parametrize("how", ["--hosts", "JAX_NUM_PROCESSES"])
+def test_multihost_without_recursion(corpus, monkeypatch, how):
+    """Multi-host without -r: the reference's own line and exit 255,
+    after the pattern compile (a bad pattern reports that first); with
+    -r the port still refuses, naming ROADMAP A11."""
+    argv = ["needle", str(corpus / "oneline")]
+    if how == "--hosts":
+        argv = ["--hosts", "2"] + argv
+    else:
+        monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    for cli in (ref_cli, port_cli):
+        rc, out, err = _run(cli, argv)
+        assert (rc, out, err) == (255, b"", "Multihost support only for recursive grabs.\n")
+        bad = argv[:-2] + ["(unclosed", argv[-1]]
+        rc, out, err = _run(cli, bad)
+        assert rc == 255 and out == b"" and "pattern compile error" in err
+        assert "Multihost" not in err
+    rc, out, err = _run(port_cli, argv[:-2] + ["-r", "needle", str(corpus)])
+    assert rc == 255 and out == b"" and "ROADMAP A11" in err
 
 
 def test_cuda_device_without_card_raises(corpus, monkeypatch):

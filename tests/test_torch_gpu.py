@@ -356,6 +356,118 @@ def test_alpharun_kernel_matches_plain(cuda, kind):
         assert int(got[0].item()) > 0
 
 
+ALPHA_PLANS = [("coarse", u) for u in (1, 2, 4, 8)] + [("fine", u) for u in (1, 2, 4)]
+
+
+def _ranges_of_count(n: int):
+    """n disjoint ranges; an even count holds byte 0 (the pad rows are
+    members), counts over 4 hold bytes >= 0x80."""
+    out = [(30 * i + 20, 30 * i + 24 + i) for i in range(n)]
+    if n % 2 == 0:
+        out[0] = (0, 0)
+    return tuple(out)
+
+
+def _odd_groups(w: np.ndarray, groups: int) -> np.ndarray:
+    """The first 32 * groups rows of a word buffer and 8 zero pad rows:
+    a group count that no block of group_count.cuh's 8 warp groups divides."""
+    return np.concatenate([w[: 32 * groups], np.zeros((PAD_ROWS, LANES), "<i4")])
+
+
+def _assert_word_kernel(got, bm):
+    want = cw.packed_block_flags(bm) + (bm,)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ranges", range(1, 9))
+def test_alpharun_kernel_every_range_count(cuda, n_ranges):
+    """Every range count the kernel is compiled for, every mode and
+    unit, on planted runs across row, group and buffer-end boundaries,
+    at 16 groups and at 13 (a block of 8 groups left part-empty)."""
+    from grab_tpu_torch.ops import alpharun as ar
+
+    ranges = _ranges_of_count(n_ranges)
+    for kind in ("text", "binary", "zeros"):
+        full = _run_words(kind, ranges, n_ranges)
+        for w_np in (full, _odd_groups(full, 13)):
+            w = torch.from_numpy(w_np).to(cuda)
+            for mode, units in ALPHA_PLANS:
+                got = ar.alpharun_flags(w, ranges, mode, units)
+                _assert_word_kernel(got, ar.alpharun_bitmap_torch(w, ranges, mode, units))
+                if kind != "zeros" or n_ranges % 2 == 0:
+                    assert int(got[0].item()) > 0, (kind, mode, units)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_seqs", [1, 8, 32])
+def test_classseq_kernel_every_span(cuda, n_seqs):
+    """1, 8 and 32 sequences (the three descriptor sizes), spans 1-8, the
+    needles at row, group, lane-127 and buffer-end places, at 16 groups
+    and at 13."""
+    from grab_tpu_torch.ops import classseq as cs
+
+    rng = np.random.default_rng(40 + n_seqs)
+
+    def cls():
+        lo = int(rng.integers(32, 250))
+        m = sum(1 << b for b in range(lo, min(256, lo + 1 + int(rng.integers(0, 9)))))
+        return m | (HIGH if rng.random() < 0.2 else 0) | (DIGIT if rng.random() < 0.3 else 0)
+
+    for span in range(1, 9):
+        seqs = [tuple(cls() for _ in range(span))]
+        seqs += [tuple(cls() for _ in range(1 + (span + i) % 8)) for i in range(n_seqs - 1)]
+        seqs = cs.compile_sequences(seqs)
+        needles = [bytes(int(rng.integers(lo, hi + 1)) for lo, hi in
+                         (c[int(rng.integers(0, len(c)))] for c in seq)) for seq in seqs]
+        for kind in ("text", "binary", "zeros"):
+            full = _words(kind, needles, span)
+            for w_np in (full, _odd_groups(full, 13)):
+                w = torch.from_numpy(w_np).to(cuda)
+                got = cs.classseq_flags(w, seqs)
+                _assert_word_kernel(got, cs.classseq_bitmap_torch(w, seqs))
+                assert int(got[0].item()) > 0, (span, kind)
+
+
+@pytest.mark.gpu
+def test_word_counts_on_two_streams(cuda):
+    """B3 and B4 count `total` through a scratch per (device, stream):
+    launches interleaved on two streams of one card, each on buffers of
+    its own, give every launch its own total, and leave both scratches
+    at zero."""
+    from grab_tpu_torch.ops import alpharun as ar
+    from grab_tpu_torch.ops import classseq as cs
+    from grab_tpu_torch.ops.corewords import count_scratch
+
+    seqs = cs.compile_sequences([(DIGIT,) * 5])
+    ranges = ((48, 57),)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    bufs = []
+    for i in range(6):
+        w = _run_words("text", ranges, 50 + i)
+        w[: 32 * i] = 0  # a different count per buffer
+        bufs.append(torch.from_numpy(w).to(cuda))
+    torch.cuda.synchronize()
+    got = []
+    for rep in range(20):
+        for i, w in enumerate(bufs):
+            with torch.cuda.stream(streams[i % 2]):
+                got.append(ar.alpharun_flags(w, ranges, "coarse", 1)[0])
+                got.append(cs.classseq_flags(w, seqs)[0])
+    torch.cuda.synchronize()
+    want = []
+    for w in bufs:
+        want.append(int(cw.packed_block_flags(ar.alpharun_bitmap_torch(w, ranges, "coarse", 1))[0]))
+        want.append(int(cw.packed_block_flags(cs.classseq_bitmap_torch(w, seqs))[0]))
+    assert len(set(want)) > 2
+    assert [int(t.item()) for t in got] == want * 20
+    for st in streams:
+        with torch.cuda.stream(st):
+            assert count_scratch(cuda).tolist() == [0, 0]
+
+
 def _long_literals(k: int, seed: int):
     rng = np.random.default_rng(seed)
     return [bytes(rng.integers(33, 127, size=int(rng.integers(7, 12)), dtype=np.uint8))
