@@ -1019,13 +1019,21 @@ def xor_ops(tests) -> int:
     return (3 * sum(len(c) for c in consts) + 2 * len(consts) + 2) * ROWS * 128
 
 
+# literal counts of phase_xor and the bank copies each launch must take
+# (ops/xorfilter.py bank_copies): 32 up to 12 bank rows, one copy for
+# 1000 literals (43 rows), global memory for 10,000 (418 rows, 211 KiB)
+XOR_SIZES = (100, 5, 40, 1000, 10000)
+XOR_COPIES = {100: 32, 5: 32, 40: 32, 1000: 1, 10000: 0}
+
+
 def phase_xor(torch, np, rng, rate):
-    """B5 against its plain version at 32 MiB geometry, bit for bit."""
+    """B5 against its plain version at 32 MiB geometry, 2045 groups and
+    40 MiB, bit for bit, in the form its host chose for each set."""
     from grab_tpu_torch.ops import xorfilter as xf
 
     dev = torch.device("cuda")
     results = []
-    for k in (100, 5, 40, 1000):
+    for k in XOR_SIZES:
         lits = long_literals(np, rng, k)
         tests = xf.XorWordTests(lits)
         bufs = kernel_buffers(np, rng, lits)
@@ -1035,17 +1043,24 @@ def phase_xor(torch, np, rng, rate):
                 pos = 700_000 + 37 * i
                 flat[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
         arities = [len(c) for c in tests.consts()]
-        results.append(word_kernel_case(
-            torch, f"XOR filter {k} literals (banks {arities})", bufs,
+        res = word_kernel_case(
+            torch, f"XOR filter {k} literals ({len(arities)} groups, {sum(arities)} banks)", bufs,
             lambda w: xf.xor_word_flags(w, tests),
             lambda w: xf.xor_bitmap_torch(w, tests.tables(), tests.consts()),
             xor_ops(tests), rate,
             {"set": f"{k} literals", "literals": k, "keys": tests.n_keys, "banks": sum(arities),
-             "groups": len(arities)}))
+             "groups": len(arities)}, shapes=True)
         nul = torch.zeros((ROWS + 8, 128), dtype=torch.int32, device=dev)
         total, packed, bm = xf.xor_word_flags(nul, tests)
         check(int(total.item()) == 0 and not bool(bm.any()),
               f"XOR filter {k} literals: NUL words pass as members")
+        copies, rem = xf.xor_word_flags.form
+        check(copies == XOR_COPIES[k] and rem == xf.remainder_arity(tests.consts()),
+              f"XOR filter {k} literals: launched with {copies} bank copies and remainder "
+              f"arity {rem}, want {XOR_COPIES[k]} and {xf.remainder_arity(tests.consts())}")
+        log(f"XOR filter {k} literals: {copies} bank copies "
+            f"({'global memory' if copies == 0 else 'shared memory'}), remainder arity {rem}")
+        results.append(dict(res, copies=copies, remainder=rem))
     return results
 
 
@@ -2035,6 +2050,10 @@ def main() -> int:
                 phase_e2e(torch, np, gbulk, ["-E", "-r", ".{0,2}(?:[0-9a-zA-Z]{4})+", gbulk],
                           "stride", False),
                 phase_e2e(torch, np, tree, ["-r", ".{0,2}[0-9]{11}", tree], "alpharun", False),
+                # 100 long literals alone: the split path's one XOR filter
+                phase_e2e(torch, np, tree,
+                          ["-r", "-S", "-H", os.path.join(tmp, "lits100.txt"), tree], "xor",
+                          False),
                 # the batches' digit and capital sequences flag nearly every
                 # block of printable text, so their miss scan runs over the
                 # punctuation tree
@@ -2081,7 +2100,7 @@ def main() -> int:
         row("xor_word_bitmap", "grab_tpu_torch/csrc/xorfilter.cu",
             "grab_tpu/ops/pallas_xorfilter.py:256",
             sum(r["launches"]["xor"] for r in route_runs), xres, xres[0],
-            ("set", "banks", "groups") + common),
+            ("set", "banks", "groups", "copies", "remainder") + common),
         row("fused_word_bitmap", "grab_tpu_torch/csrc/fused.cu",
             "grab_tpu/ops/pallas_fused.py:182",
             sum(r["launches"]["fused"] for r in route_runs), fres, fres[0],

@@ -1,5 +1,5 @@
 // Epilogues of the word kernels that count `total` without a memset
-// (alpharun.cu, classseq.cu).
+// (alpharun.cu, classseq.cu, xorfilter.cu).
 //
 // The int32 word buffer [rows + 8, 128] is cut into 32-row groups; a
 // kernel builds each lane's bitmap word of a group in registers (bit r =
@@ -18,7 +18,9 @@
 //
 // Two geometries:
 //   warp per group (warp_group_epilogue): lane l owns words 4l .. 4l + 3
-//     of each row (one 16-byte load per row), a block kWarps groups;
+//     of each row (one 16-byte load per row), a block kWarps groups; a
+//     persistent block that walks several groups per warp stores each
+//     with warp_group_store and counts once, at its end, with block_count;
 //   block per group (lane_group_epilogue): thread c owns word c of each
 //     row, a block of kWordLanes threads one group.
 
@@ -56,30 +58,46 @@ __device__ __forceinline__ void finish_count(int n, int32_t* __restrict__ scratc
   }
 }
 
-// Warp per group. Called by every thread of the block exactly once.
-// bits[k] is the bitmap word of lane 4 * (threadIdx.x % 32) + k of group
-// g; valid is false for the warps past the last group.
+// Warp per group: the outputs of group g from the bitmap words of the
+// warp's 32 lanes (bits[k]: lane 4 * (threadIdx.x % 32) + k). Called by
+// the whole warp; → whether the group has a hit, in every lane.
+__device__ __forceinline__ bool warp_group_store(const uint32_t (&bits)[4], int64_t g,
+                                                 int32_t* __restrict__ bm,
+                                                 int32_t* __restrict__ packed) {
+  const int lane = threadIdx.x & 31;
+  reinterpret_cast<uint4*>(bm + g * kWordLanes)[lane] =
+      make_uint4(bits[0], bits[1], bits[2], bits[3]);
+  const uint32_t any = __reduce_or_sync(0xffffffffu, bits[0] | bits[1] | bits[2] | bits[3]);
+  if (lane == 0) packed[g] = static_cast<int32_t>(any);
+  return any != 0u;
+}
+
+// Warp per group: the block's count. Called by every thread of the block
+// exactly once; n is the number of groups with a hit that the thread's
+// warp stored (read from lane 0).
+__device__ __forceinline__ void block_count(int n, int32_t* __restrict__ scratch,
+                                            int32_t* __restrict__ total) {
+  __shared__ int32_t hit_groups[kWarps];
+  if ((threadIdx.x & 31) == 0) hit_groups[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += hit_groups[w];
+    finish_count(sum, scratch, total);
+  }
+}
+
+// Warp per group, one group per warp. Called by every thread of the
+// block exactly once. bits[k] is the bitmap word of lane
+// 4 * (threadIdx.x % 32) + k of group g; valid is false for the warps
+// past the last group.
 __device__ __forceinline__ void warp_group_epilogue(
     const uint32_t (&bits)[4], bool valid, int64_t g,
     int32_t* __restrict__ bm, int32_t* __restrict__ packed,
     int32_t* __restrict__ scratch, int32_t* __restrict__ total) {
-  __shared__ int32_t hit_groups[kWarps];
-  const int lane = threadIdx.x & 31;
-  uint32_t any = 0;
-  if (valid) {
-    reinterpret_cast<uint4*>(bm + g * kWordLanes)[lane] =
-        make_uint4(bits[0], bits[1], bits[2], bits[3]);
-    any = __reduce_or_sync(0xffffffffu, bits[0] | bits[1] | bits[2] | bits[3]);
-    if (lane == 0) packed[g] = static_cast<int32_t>(any);
-  }
-  if (lane == 0) hit_groups[threadIdx.x >> 5] = any != 0u;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int n = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) n += hit_groups[w];
-    finish_count(n, scratch, total);
-  }
+  const bool hit = valid && warp_group_store(bits, g, bm, packed);
+  block_count(hit ? 1 : 0, scratch, total);
 }
 
 // Block per group (group g = blockIdx.x). Called by all kWordLanes

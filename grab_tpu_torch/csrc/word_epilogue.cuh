@@ -1,5 +1,5 @@
-// Shared epilogue of the word-bitmap kernels (corewords.cu, xorfilter.cu,
-// fused.cu, bloom.cu; alpharun.cu and classseq.cu use group_count.cuh).
+// Shared epilogue of the word-bitmap kernels (corewords.cu, fused.cu,
+// bloom.cu; alpharun.cu, classseq.cu and xorfilter.cu use group_count.cuh).
 //
 // Each kernel runs one block of kWordLanes threads per 32-row group of
 // the int32 word buffer [rows + 8, 128]: thread c walks the group's 32

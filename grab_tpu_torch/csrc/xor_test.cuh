@@ -1,4 +1,5 @@
-// The XOR-filter membership test shared by xorfilter.cu and fused.cu.
+// The XOR-filter membership test: the compact form of fused.cu
+// (xor_members) and the copied-bank form of xorfilter.cu (copied_group).
 //
 // A filter is a list of groups; group g has arity a_g in 1..4 bank rows
 // of 128 slots and one odd 32-bit multiplier per bank. A word x is a
@@ -75,6 +76,46 @@ __device__ __forceinline__ uint32_t xor_members(const uint32_t (&x)[R],
     bank += a * kXorSlots;
   }
   return hits;
+}
+
+// The copied-bank form (xorfilter.cu). A block expands each bank row
+// into shared memory as C = 2^kLogC interleaved copies, copy j of slot s
+// at word s * C + j, and lane l reads copy l mod C: with C = 32 the 32
+// lanes of a warp read 32 distinct shared-memory banks whatever slots
+// they ask for, with C = 16 at most two lanes share one. C = 1 is the
+// compact row, in shared memory or (kGlobal) in global memory. `row`
+// points at the lane's copy of a bank row, `h` is x * c_b.
+template <int kLogC, bool kGlobal>
+__device__ __forceinline__ uint32_t copied_slot(const uint32_t* row, uint32_t h) {
+  const uint32_t off = (h >> (25 - kLogC)) & (static_cast<uint32_t>(kXorSlots - 1) << kLogC);
+  if constexpr (kGlobal) {
+    return __ldg(row + off);
+  } else {
+    return row[off];
+  }
+}
+
+// One group of A banks (multipliers c[0 .. A), expanded rows from `bank`
+// on, kXorSlots << kLogC words apart) on the 4 words of each of the R
+// rows a lane holds: sets bit i of hk[k] when word k of row i is a member.
+template <int A, int kLogC, bool kGlobal, int R>
+__device__ __forceinline__ void copied_group(const uint4 (&q)[R], const uint32_t* c,
+                                             const uint32_t* bank, uint32_t (&hk)[4]) {
+  constexpr int kRow = kXorSlots << kLogC;
+  uint32_t cb[A];
+#pragma unroll
+  for (int b = 0; b < A; ++b) cb[b] = c[b];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const uint32_t x[4] = {q[i].x, q[i].y, q[i].z, q[i].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t acc = 0;
+#pragma unroll
+      for (int b = 0; b < A; ++b) acc ^= copied_slot<kLogC, kGlobal>(bank + b * kRow, x[k] * cb[b]);
+      hk[k] |= static_cast<uint32_t>(acc == x[k]) << i;
+    }
+  }
 }
 
 }  // namespace grab_word

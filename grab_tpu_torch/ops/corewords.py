@@ -263,10 +263,10 @@ _COUNT_SCRATCH = {}
 
 def count_scratch(dev: torch.device) -> torch.Tensor:
     """The two-word device scratch (count, blocks done; one 8-byte
-    atomic) through which the
-    kernels of csrc/group_count.cuh (alpharun.cu, classseq.cu)
-    count ``total`` without a memset before each launch: one per (device,
-    current stream), zeroed once. Every launch leaves it zero, and the
+    atomic) through which the kernels of csrc/group_count.cuh
+    (alpharun.cu, classseq.cu, xorfilter.cu) count ``total`` without a
+    memset before each launch: one per (device, current stream), zeroed
+    once. Every launch leaves it zero, and the
     launches that share it are ordered by their stream, so two streams
     never share one."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()

@@ -25,7 +25,10 @@ bit for bit. Output geometry and decode are the core-word prefilter's
 ``xor_word_flags`` is the entry point: on a CUDA tensor it launches the
 hand-written kernel csrc/xorfilter.cu (or raises); on a CPU tensor it
 runs the plain PyTorch version below, which the tests hold against the
-reference's kernel and its numpy oracle.
+reference's kernel and its numpy oracle. The launch's form is chosen
+here from the program's shape: how many interleaved copies of each bank
+row a block keeps in shared memory (``bank_copies``) and whether the
+groups are full 4-bank groups plus one remainder (``remainder_arity``).
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ from grab_tpu_torch.ops.corewords import (
     PAD_ROWS,
     bitmap_rows_torch,
     check_words,
+    counted_launch_args,
     decode_packed_flags,
-    launch_args,
     packed_block_flags,
 )
 
@@ -250,6 +253,33 @@ def xor_program(tbl: np.ndarray, consts_groups) -> np.ndarray:
     return np.concatenate([head.view(np.int32), tbl.reshape(-1)])
 
 
+# The kernel's shared memory (csrc/xorfilter.cu): the header (arities
+# and multipliers, padded to 16 bytes), then the bank rows, each as C
+# interleaved copies: the most of 32, 16 and 1 that fit SHARED_LIMIT
+# (on the H100 more copies beat a second block on the SM: `kernel_ab.py
+# xor` times every form); a filter larger still stays in global memory.
+SHARED_LIMIT = 200 * 1024  # csrc/xorfilter.cu kSharedLimit
+
+
+def bank_copies(n_groups: int, n_rows: int) -> int:
+    """Copies of each bank row that a block of the kernel keeps in
+    shared memory for a filter of ``n_groups`` groups and ``n_rows``
+    bank rows: 32, 16 or 1; 0 when the rows stay in global memory."""
+    head = (n_groups + n_rows + 3) // 4 * 16
+    for copies in (32, 16, 1):
+        if head + n_rows * BANK_SLOTS * 4 * copies <= SHARED_LIMIT:
+            return copies
+    return 0
+
+
+def remainder_arity(consts_groups) -> int:
+    """The arity of the last group when every other group has 4 banks
+    (the construction's shape: the kernel unrolls it), else 0 (any other
+    shape: the kernel dispatches each group's arity)."""
+    arities = [len(c) for c in consts_groups]
+    return arities[-1] if all(a == N_BANKS for a in arities[:-1]) else 0
+
+
 def xor_member_torch(x: torch.Tensor, tbl: torch.Tensor, consts_groups) -> torch.Tensor:
     """bool, shape of x: the filter's test on int32 words. An int32
     multiply wraps to the same low 32 bits as the unsigned one; the
@@ -287,10 +317,13 @@ def _kernel_lib():
             ctypes.c_void_p,  # device program
             ctypes.c_void_p,  # the same program on the host
             ctypes.c_int64,  # program words
+            ctypes.c_int,  # bank copies in shared memory (0: global)
+            ctypes.c_int,  # remainder arity (0: any shape)
             ctypes.c_int64,  # groups
             ctypes.c_void_p,  # bm
             ctypes.c_void_p,  # packed
             ctypes.c_void_p,  # total
+            ctypes.c_void_p,  # the stream's count scratch
             ctypes.c_int,  # device index
             ctypes.c_void_p,  # stream
         ]
@@ -303,26 +336,33 @@ def xor_word_flags(
     """→ (total int32 [1], packed int32 [rows/32], bm int32 [rows/32, 128]).
 
     CUDA tensor: one launch of csrc/xorfilter.cu on the current stream
-    (counted in ``xor_word_flags.launches``); a refused launch raises.
-    CPU tensor: the plain PyTorch version."""
+    (counted in ``xor_word_flags.launches``, its form (bank copies,
+    remainder arity) kept in ``xor_word_flags.form``); a refused launch
+    raises. CPU tensor: the plain PyTorch version."""
     rows = check_words(words2d)
     if words2d.device.type == "cpu":
         bm = xor_bitmap_torch(words2d, tests.tables(), tests.consts())
         total, packed = packed_block_flags(bm)
         return total, packed, bm
+    if words2d.data_ptr() % 16:
+        raise ValueError("words2d must be 16-byte aligned on the card")
     host = tests.program()
     prog = tests.device_program(words2d.device)
-    outs, tail = launch_args(rows, words2d.device)
+    consts = tests.consts()
+    form = (bank_copies(len(consts), sum(len(c) for c in consts)), remainder_arity(consts))
+    outs, tail = counted_launch_args(rows, words2d.device)
     err = _kernel_lib()(
-        words2d.data_ptr(), prog.data_ptr(), host.ctypes.data, host.size, *tail
+        words2d.data_ptr(), prog.data_ptr(), host.ctypes.data, host.size, *form, *tail
     )
     if err != 0:
         raise RuntimeError(f"XOR-filter kernel launch failed: CUDA error {err}")
     xor_word_flags.launches += 1
+    xor_word_flags.form = form
     return outs
 
 
 xor_word_flags.launches = 0
+xor_word_flags.form = None
 
 
 class XorWordScanner:

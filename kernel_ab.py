@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times kernels of the grab_tpu_torch port on one CUDA card, in the
 checkout it runs from: the strided-DFA walk (B2), the fused ensemble
-(B6), the alphabet runs (B3) and the class sequences (B4).
+(B6), the alphabet runs (B3), the class sequences (B4) and the XOR
+filter (B5).
 
-    python3 kernel_ab.py [stride|fused|both|alpha|seq]
+    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor]
 
 Run it from the root of two checkouts in turns (A, B, B, A) on one
 card, one after the other, to compare two versions of the kernels: both
@@ -19,7 +20,11 @@ sequences, one bucket) that split the fused time into its members;
 ``alpha`` every plan of chip_smoke.ALPHA_CASES and ``seq`` every set of
 chip_smoke.seq_sets on their text buffers, each beside the profiler's
 device ms per launch by name (the kernel body, and the memsets and
-copies queued on the stream around it).
+copies queued on the stream around it); ``xor`` every literal count of
+chip_smoke.phase_xor the same way and, in a checkout whose wrapper
+chooses how many copies of the bank rows a block keeps
+(ops/xorfilter.py bank_copies), each other form that fits, forced, on
+those sets and on 150, 250 and 500 literals (7, 11 and 22 bank rows).
 """
 
 import importlib.util
@@ -148,6 +153,42 @@ def seq_times(rng, dev):
     return res
 
 
+def xor_times(rng, dev):
+    from grab_tpu_torch.ops import xorfilter as xf
+
+    smoke = own_smoke()
+    split = smoke.profile_split
+    choose = getattr(xf, "bank_copies", None)
+    sets = [(k, rng) for k in smoke.XOR_SIZES]
+    if choose is not None:
+        sets += [(k, np.random.default_rng(k)) for k in (150, 250, 500)]
+    res = {}
+    for k, r in sets:
+        lits = cs.long_literals(np, r, k)
+        tests = xf.XorWordTests(lits)
+        text = torch.from_numpy(cs.kernel_buffers(np, r, lits)["text"]).to(dev)
+        ring = [text] + [text.clone() for _ in range(3)]
+        if k in smoke.XOR_SIZES:
+            res[f"{k} literals"] = timed(lambda i: xf.xor_word_flags(ring[i % 4], tests), split)
+        if choose is None:
+            continue
+        n_groups, n_rows = len(tests.consts()), sum(len(c) for c in tests.consts())
+        head = (n_groups + n_rows + 3) // 4 * 16
+        try:
+            for copies in (32, 16, 1, 0):
+                if head + n_rows * 512 * copies > xf.SHARED_LIMIT:
+                    continue
+                xf.bank_copies = lambda g, n, c=copies: c
+                res[f"{k} literals ({n_rows} rows), "
+                    + (f"{copies} copies" if copies else "global memory")
+                    + (" (chosen)" if copies == choose(n_groups, n_rows) else "")] = min(
+                    cs.time_cuda(torch, lambda i: xf.xor_word_flags(ring[i % 4], tests), 40)
+                    for _ in range(2))
+        finally:
+            xf.bank_copies = choose
+    return res
+
+
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "both"
     if not torch.cuda.is_available():
@@ -164,6 +205,8 @@ def main() -> int:
         out["alpha"] = alpha_times(rng, dev)
     if what == "seq":
         out["seq"] = seq_times(rng, dev)
+    if what == "xor":
+        out["xor"] = xor_times(rng, dev)
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

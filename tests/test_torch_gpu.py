@@ -433,20 +433,27 @@ def test_classseq_kernel_every_span(cuda, n_seqs):
 
 @pytest.mark.gpu
 def test_word_counts_on_two_streams(cuda):
-    """B3 and B4 count `total` through a scratch per (device, stream):
-    launches interleaved on two streams of one card, each on buffers of
-    its own, give every launch its own total, and leave both scratches
-    at zero."""
+    """B3, B4 and B5 count `total` through a scratch per (device,
+    stream): launches interleaved on two streams of one card, each on
+    buffers of its own, give every launch its own total, and leave both
+    scratches at zero."""
     from grab_tpu_torch.ops import alpharun as ar
     from grab_tpu_torch.ops import classseq as cs
+    from grab_tpu_torch.ops import xorfilter as xf
     from grab_tpu_torch.ops.corewords import count_scratch
 
     seqs = cs.compile_sequences([(DIGIT,) * 5])
     ranges = ((48, 57),)
+    lits = _long_literals(100, 8)
+    xor = xf.XorWordTests(lits)
     streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
     bufs = []
     for i in range(6):
         w = _run_words("text", ranges, 50 + i)
+        flat = w[: N // BLOCK].reshape(-1).view(np.uint8)
+        for j, lit in enumerate(lits[: 10 + 5 * i]):  # literals in ever more groups
+            pos = 6151 * j + 8
+            flat[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
         w[: 32 * i] = 0  # a different count per buffer
         bufs.append(torch.from_numpy(w).to(cuda))
     torch.cuda.synchronize()
@@ -456,11 +463,14 @@ def test_word_counts_on_two_streams(cuda):
             with torch.cuda.stream(streams[i % 2]):
                 got.append(ar.alpharun_flags(w, ranges, "coarse", 1)[0])
                 got.append(cs.classseq_flags(w, seqs)[0])
+                got.append(xf.xor_word_flags(w, xor)[0])
     torch.cuda.synchronize()
     want = []
     for w in bufs:
         want.append(int(cw.packed_block_flags(ar.alpharun_bitmap_torch(w, ranges, "coarse", 1))[0]))
         want.append(int(cw.packed_block_flags(cs.classseq_bitmap_torch(w, seqs))[0]))
+        want.append(int(cw.packed_block_flags(
+            xf.xor_bitmap_torch(w, xor.tables(), xor.consts()))[0]))
     assert len(set(want)) > 2
     assert [int(t.item()) for t in got] == want * 20
     for st in streams:
@@ -474,26 +484,75 @@ def _long_literals(k: int, seed: int):
             for _ in range(k)]
 
 
+def _grown(w: np.ndarray, rows: int) -> np.ndarray:
+    """A word buffer of ``rows`` rows (+ 8 zero pad rows) repeated out of
+    ``w``'s, its last 64 bytes ``w``'s last 64 (a hit in the last word)."""
+    body = np.resize(w[:-PAD_ROWS], (rows, LANES))
+    body[-1, -16:] = w[-PAD_ROWS - 1, -16:]
+    return np.concatenate([body, np.zeros((PAD_ROWS, LANES), "<i4")])
+
+
+# 5, 40, 100 literals: 32 bank copies; 1000: one copy; 10,000: global memory
+XOR_FORMS = {5: (32, 1), 40: (32, 3), 100: (32, 1), 1000: (1, 3), 10000: (0, 2)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [5, 40, 100, 1000])
+@pytest.mark.parametrize("k", [5, 40, 100, 1000, 10000])
 def test_xor_kernel_matches_plain(cuda, k):
+    """Every form the launch takes (bank copies, remainder arity), at 16
+    groups, at 2045 (no multiple of a block's 8 groups) and at 40 MiB."""
     from grab_tpu_torch.ops import xorfilter as xf
 
     lits = _long_literals(k, k)
     tests = xf.XorWordTests(lits)
     for kind in ("text", "binary", "zeros"):
-        w = torch.from_numpy(_words(kind, lits, k)).to(cuda)
-        before = xf.xor_word_flags.launches
-        got = xf.xor_word_flags(w, tests)
-        assert xf.xor_word_flags.launches == before + 1
-        bm = xf.xor_bitmap_torch(w, tests.tables(), tests.consts())
-        want = cw.packed_block_flags(bm) + (bm,)
-        torch.cuda.synchronize()
-        for g, x in zip(got, want):
-            assert g.dtype == x.dtype and torch.equal(g, x)
-        assert int(got[0].item()) > 0
+        small = _words(kind, lits, k)
+        for w_np in (small, _grown(small, 2045 * 32), _grown(small, (40 << 20) // BLOCK)):
+            w = torch.from_numpy(w_np).to(cuda)
+            before = xf.xor_word_flags.launches
+            got = xf.xor_word_flags(w, tests)
+            assert xf.xor_word_flags.launches == before + 1
+            assert xf.xor_word_flags.form == XOR_FORMS[k]
+            _assert_word_kernel(got, xf.xor_bitmap_torch(w, tests.tables(), tests.consts()))
+            assert int(got[0].item()) > 0
     nul = torch.zeros((64 + PAD_ROWS, LANES), dtype=torch.int32, device=cuda)
     assert int(xf.xor_word_flags(nul, tests)[0].item()) == 0  # NUL words are no members
+
+
+def _any_shape_tests(xf, lits):
+    """The filter of ``lits`` rebuilt as groups of arities 2, 4, 1, 3: a
+    shape the kernel does not unroll (the construction's split fallback
+    can make one)."""
+    tests = xf.XorWordTests(lits)
+    keys = sorted({w for lit in lits for _j, w in xf._phase_words(lit)})
+    tests.groups = []
+    for lo, hi, arity in ((0, 100, 2), (100, 484, 4), (484, 500, 1), (500, len(keys), 3)):
+        tests._build_group(keys[lo:hi], arity)
+    return tests
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copies", [32, 16, 1, 0])
+def test_xor_kernel_every_form(cuda, monkeypatch, copies):
+    """Each bank-copy form, forced, with every remainder arity (5, 25, 40,
+    80 literals: 1, 2, 3, 4) and with a shape of any arities (the
+    per-group dispatch), at 16 groups and at 13."""
+    from grab_tpu_torch.ops import xorfilter as xf
+
+    monkeypatch.setattr(xf, "bank_copies", lambda n_groups, n_rows: copies)
+    cases = [(k, xf.XorWordTests(_long_literals(k, 60 + k))) for k in (5, 25, 40, 80)]
+    cases.append((200, _any_shape_tests(xf, _long_literals(200, 9))))
+    for k, tests in cases:
+        rem = xf.remainder_arity(tests.consts())
+        assert rem == {5: 1, 25: 2, 40: 3, 80: 4, 200: 0}[k]
+        for kind in ("text", "binary"):
+            full = _words(kind, tests.literals, k)
+            for w_np in (full, _odd_groups(full, 13)):
+                w = torch.from_numpy(w_np).to(cuda)
+                got = xf.xor_word_flags(w, tests)
+                assert xf.xor_word_flags.form == (copies, rem)
+                _assert_word_kernel(got, xf.xor_bitmap_torch(w, tests.tables(), tests.consts()))
+                assert int(got[0].item()) > 0, (k, kind)
 
 
 def _fused_ensembles():

@@ -160,6 +160,91 @@ def test_scanner_flags_match_reference_scanner(k):
     assert (psc.flags_np(ppk.numpy(), nb) == rsc.flags_np(np.asarray(rpk), nb)).all()
 
 
+def _kernel_model(w2d: np.ndarray, tests, copies: int) -> np.ndarray:
+    """numpy model of what csrc/xorfilter.cu computes, in its form: the
+    bank rows expanded into C interleaved copies (copy j of slot s at
+    s*C + j; one compact copy for C = 1 and for the global form, 0),
+    word 4l + k of a row read by lane l through copy l mod C, and the
+    groups taken as the launch's remainder arity says (full 4-bank
+    groups and one of arity rem, or each group's own arity when rem is
+    0). → int32 [rows/32, 128] row bitmap."""
+    prog = tests.program().view(np.uint32)
+    n_groups, n_rows = int(prog[0]), int(prog[1])
+    arity = prog[2 : 2 + n_groups]
+    mult = prog[2 + n_groups : 2 + n_groups + n_rows].astype(np.uint64)
+    c = max(copies, 1)
+    expanded = np.repeat(prog[2 + n_groups + n_rows :].reshape(n_rows, LANES), c, axis=1)
+    rem = port.remainder_arity(tests.consts())
+    shape = [4] * (n_groups - 1) + [rem] if rem else [int(a) for a in arity]
+    assert shape == [int(a) for a in arity]
+    rows = w2d.shape[0] - PAD_ROWS
+    x = w2d[:rows].view(np.uint32)
+    copy = (np.arange(LANES) // 4) % c
+    hit = np.zeros(x.shape, dtype=bool)
+    base = 0
+    for a in shape:
+        acc = np.zeros(x.shape, dtype=np.uint32)
+        for b in range(base, base + a):
+            slot = ((x * mult[b]) & 0xFFFFFFFF) >> np.uint64(25)
+            acc ^= expanded[b][(slot * c + copy).astype(np.int64)]
+        hit |= acc == x
+        base += a
+    bits = hit.reshape(rows // 32, 32, LANES).astype(np.uint32) << np.arange(32, dtype=np.uint32)[:, None]
+    return np.bitwise_or.reduce(bits, axis=1).view(np.int32)
+
+
+def _any_shape(mod, lits):
+    """``mod``'s filter of ``lits`` rebuilt as groups of arities 2, 4, 1,
+    3: a shape the kernel does not unroll (the construction's split
+    fallback can make one)."""
+    tests = mod.XorWordTests(lits)
+    keys = sorted({w for lit in lits for _j, w in port._phase_words(lit)})
+    tests.groups = []
+    for lo, hi, arity in ((0, 100, 2), (100, 484, 4), (484, 500, 1), (500, len(keys), 3)):
+        tests._build_group(keys[lo:hi], arity)
+    return tests
+
+
+@pytest.mark.parametrize("copies", [32, 16, 1, 0])
+@pytest.mark.parametrize("k", SIZES + ["any shape"])
+def test_kernel_arithmetic_matches_reference(filters, k, copies):
+    """The kernel's form, modelled in numpy, on every filter size
+    (remainder arities 1-4) and on a shape of any arities, in every form
+    the host can choose, equals the reference's numpy oracle."""
+    if k == "any shape":
+        lits = literals(200, 11)
+        r, p = _any_shape(ref, lits), _any_shape(port, lits)
+        assert p.consts() == r.consts() and port.remainder_arity(p.consts()) == 0
+    else:
+        lits, r, p = filters[k]
+    for kind in ("text", "binary"):
+        w2d = _words(kind, lits, seed=3)
+        assert np.array_equal(_kernel_model(w2d, p, copies), ref.np_xor_bitmap(w2d, r))
+
+
+@pytest.mark.parametrize("n_groups, n_rows, copies", [
+    (1, 1, 32), (1, 3, 32), (2, 5, 32), (3, 11, 32), (4, 12, 32),  # 5-250 literals
+    (4, 13, 16), (6, 22, 16), (7, 24, 16),  # 500 literals: 22 rows
+    (7, 25, 1), (11, 43, 1), (100, 396, 1),  # 1000 literals: 43 rows
+    (100, 397, 0), (105, 418, 0),  # 10,000 literals: 418 rows, 211 KiB
+])
+def test_bank_copies_choice(n_groups, n_rows, copies):
+    """The most copies of 32, 16 and 1 whose shared memory (header and
+    copied rows) fits SHARED_LIMIT, else global memory."""
+    assert port.bank_copies(n_groups, n_rows) == copies
+    head = (n_groups + n_rows + 3) // 4 * 16
+    fits = [c for c in (32, 16, 1) if head + n_rows * 512 * c <= port.SHARED_LIMIT]
+    assert copies == (fits[0] if fits else 0)
+
+
+@pytest.mark.parametrize("arities, rem", [
+    ([1], 1), ([4], 4), ([4, 4, 3], 3), ([4, 2], 2), ([2, 4], 0), ([4, 1, 4], 0),
+])
+def test_remainder_arity(arities, rem):
+    consts = tuple((1,) * a for a in arities)
+    assert port.remainder_arity(consts) == rem
+
+
 def test_nul_word_not_member():
     """All-zero words (NUL runs) must not pass: unassigned slots are
     random-initialized, not zero."""
