@@ -98,7 +98,18 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      subprocess (``python -m grab_tpu_torch.server``): requests through
      ``--via``'s client must print what the direct CLI printed, a
      nonexistent path gives exit 255, and the first and second ``-H``
-     request are timed;
+     request are timed; then multi-host: two CLI processes sharing the
+     card (``--hosts 2 --pid P --coordinator 127.0.0.1:PORT``, the
+     store and gloo) for the literal miss scan over the tree, ``-O``
+     with planted hits over mtree and ``-H batch4`` over gbulk (B6):
+     host 0 prints what ``-n 1`` prints on the card, host 1 nothing,
+     each process's launch counters read through ``--host-run`` (below),
+     walls beside ``-n 1``'s (no rate is claimed); ``spot -n 8`` equals
+     ``-n 1`` over the tree; B1's flags (32 MiB) and B2's (2 MiB) cover
+     every block of an exact match from the port's ``golden``; and
+     ``make_sharded_scan`` on ``cuda:0,cuda:0`` at 32 MiB per shard (a
+     literal and a literal-free pattern) equals the same call on the
+     CPU;
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
      bound; the last-resort walk per 32 MiB buffer; then a miss or
@@ -110,6 +121,10 @@ card, and fails (non-zero exit, no result line) if any phase fails:
 
 Details go to smoke_out/chip_smoke.json. The script imports nothing
 of JAX (``jax`` is blocked in sys.modules) and nothing of grab_tpu.
+
+``python3 chip_smoke.py --host-run COUNTS -- ARGS`` is the multi-host
+phase's child: ``grab_tpu_torch.cli.main(ARGS)`` with its launch
+counters written to COUNTS.
 """
 
 from __future__ import annotations
@@ -1956,6 +1971,227 @@ def phase_server(torch, np, here, trees, tmp, outs, one_literal):
     return res
 
 
+# -- multi-host, spot, golden and the byte-level step ------------------------
+
+
+def host_run(counts_path: str, argv) -> int:
+    """``chip_smoke.py --host-run COUNTS -- ARGS``: one CLI process
+    (``grab_tpu_torch.cli.main(ARGS)``, as ``python -m grab_tpu_torch.cli``
+    runs it) with every launch counter set to 0 before and written to
+    COUNTS after: the counts of a process the phase does not live in."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "grab_tpu_torch")):
+        print("chip_smoke: the grab_tpu_torch package is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from grab_tpu_torch import cli
+
+    reset_counters()
+    rc = cli.main(list(argv))
+    sys.stdout.flush()
+    with open(counts_path, "w") as f:
+        json.dump(read_counters(), f)
+    return rc
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(here, tmp, argvs, env, timeout=300):
+    """CLI processes through ``host_run``, started together; → their
+    (rc, stdout, stderr, counters) and the wall from the first start to
+    the last exit."""
+    procs, paths = [], []
+    t0 = time.perf_counter()
+    for i, argv in enumerate(argvs):
+        paths.append(os.path.join(tmp, f"counts{i}.json"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--host-run", paths[-1], "--"]
+            + argv, cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    res = []
+    try:
+        for p, path in zip(procs, paths):
+            out, err = p.communicate(timeout=timeout)
+            counts = {}
+            if p.returncode == 0:
+                with open(path) as f:
+                    counts = json.load(f)
+            res.append((p.returncode, out, err.decode(errors="replace"), counts))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return res, time.perf_counter() - t0
+
+
+def phase_multihost(torch, np, here, tree, trees, tmp):
+    """Two CLI processes sharing the card (``--hosts 2``, a store on a
+    free localhost port, gloo), each GRAB_TPU_TORCH_DEVICE=cuda:0: host
+    0's stdout must equal the port's -n 1 run on the card byte for byte,
+    host 1's must be empty, and --stats must give -n 1's line count.
+    Walls beside -n 1's (each a process of its own); no rate is claimed."""
+    env = dict(os.environ, PYTHONPATH=here, GRAB_TPU_TORCH_DEVICE="cuda:0",
+               GRAB_TPU_KV_TIMEOUT_MS="240000")
+    cases = [
+        ("literal miss, tree", ["-r", "zQx##missing##", tree], ["corewords"]),
+        ("literal hits -O, mtree", ["-r", "-O", GROUP_LITERAL, trees["mtree"][0]], ["corewords"]),
+        ("-H batch4, gbulk", ["-r", "-H", os.path.join(tmp, "batch4.txt"), trees["gbulk"][0]],
+         ["fused"]),
+    ]
+    res = []
+    for label, argv, counted in cases:
+        (one,), one_s = run_procs(here, tmp, [argv], env)
+        check(one[0] == 0, f"multi-host {label}: the -n 1 run: rc {one[0]}: {one[2][-2000:]}")
+        addr = f"127.0.0.1:{free_port()}"
+        hosts, hosts_s = run_procs(here, tmp, [
+            ["--hosts", "2", "--pid", str(pid), "--coordinator", addr, "--stats"] + argv
+            for pid in range(2)], env)
+        for pid, (rc, _out, err, _c) in enumerate(hosts):
+            check(rc == 0, f"multi-host {label}: host {pid}: rc {rc}: {err[-2000:]}")
+        check(hosts[0][1] == one[1], f"multi-host {label}: host 0 stdout ({len(hosts[0][1])} B) "
+              f"!= -n 1 stdout ({len(one[1])} B)")
+        check(hosts[1][1] == b"", f"multi-host {label}: host 1 printed {len(hosts[1][1])} B")
+        n_lines = one[1].count(b"\n")
+        check(f"tpugrep: {n_lines} match lines across 2 hosts" in hosts[0][2],
+              f"multi-host {label}: no '{n_lines} match lines across 2 hosts' on host 0")
+        launches = {k: sum(h[3][k] for h in hosts) for k in hosts[0][3]}
+        for c in counted:
+            check(launches[c] > 0 and all(h[3][c] > 0 for h in hosts),
+                  f"multi-host {label}: the {c} kernel was not launched on both hosts")
+        res.append({"label": label, "stdout_bytes": len(one[1]), "match_lines": n_lines,
+                    "wall_s": {"n1": one_s, "hosts2": hosts_s},
+                    "launches": {"n1": one[3], "hosts2": launches}})
+        log(f"multi-host, 2 processes on cuda:0: {label}: host 0 stdout == "
+            f"-n 1 ({len(one[1])} B, {n_lines} lines), host 1 empty; wall {hosts_s:.3f} s "
+            f"(-n 1: {one_s:.3f} s, each a process of its own); launches {launches}")
+    return res
+
+
+def phase_spot(torch, np, here, tree):
+    """``python -m grab_tpu_torch.spot -n 8`` equals ``-n 1`` on the tree
+    (host only: the native walker built and run on this machine)."""
+    from grab_tpu_torch.ingest import native
+
+    check(native.available(), "spot: the native ingest library is not available")
+    pattern = r"d1[0-9]/e[24]/f[0-9]*7\.txt$|large"
+    env = dict(os.environ, PYTHONPATH=here)
+    outs, walls = {}, {}
+    for n in (8, 1):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "grab_tpu_torch.spot", "-n", str(n), tree, pattern],
+                           cwd=here, env=env, capture_output=True, timeout=300)
+        walls[n] = time.perf_counter() - t0
+        check(r.returncode == 0, f"spot -n {n}: rc {r.returncode}: {r.stderr.decode()[-1000:]}")
+        outs[n] = r.stdout
+    n_files = sum(len(fs) for _, _, fs in os.walk(tree))
+    lines = outs[1].count(b"\n")
+    check(outs[8] == outs[1] and 0 < lines < n_files,
+          f"spot: -n 8 ({len(outs[8])} B) != -n 1 ({len(outs[1])} B), or {lines} of {n_files}")
+    log(f"spot -n 8 == -n 1 over the tree: {lines} of {n_files} paths ({walls[8]:.2f} s, "
+        f"{walls[1]:.2f} s as processes)")
+    return {"paths": lines, "files": n_files, "walls_s": {str(k): v for k, v in walls.items()}}
+
+
+def phase_golden(torch, np, rng):
+    """The card's flags against the port's golden scanners: B1 at the
+    main path's 32 MiB and B2 over a 2 MiB buffer (dfa_scan_ends_fast is
+    a Python loop) flag every block that holds an exact match start (B1)
+    or end (B2), ``block_counts`` > 0."""
+    from grab_tpu_torch import golden
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.ops.corewords import CoreWordScanner
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    dev = torch.device("cuda")
+    res = {}
+    lits = [b"needleXY", b"linus", b"fooqbar"]
+    data = rng.integers(32, 127, size=BUF, dtype=np.uint8)
+    data[::97] = 0x0A
+    spots = rng.integers(0, BUF - 16, size=3000).tolist() + [0, 509, 512 * 64 - 3, BUF - 8]
+    for j, p in enumerate(spots):
+        lit = lits[j % len(lits)]
+        p = min(int(p), BUF - len(lit))
+        data[p : p + len(lit)] = np.frombuffer(lit, np.uint8)
+    words = np.concatenate([data.view("<i4").reshape(ROWS, 128), np.zeros((8, 128), "<i4")])
+    sc = CoreWordScanner(lits)
+    _total, packed = sc.packed(torch.from_numpy(words).to(dev))
+    flags = sc.flags_np(packed.cpu().numpy(), ROWS)
+    want = golden.block_counts(golden.literal_scan_starts(lits, data.tobytes()), 512) > 0
+    missed = int((want & (flags == 0)).sum())
+    check(want.sum() >= 2000 and missed == 0,
+          f"golden: B1 missed {missed} of {int(want.sum())} exact match blocks")
+    res["B1"] = {"bytes": BUF, "match_blocks": int(want.sum()), "flagged": int(flags.sum())}
+
+    n = 2 << 20
+    pat = rb"[A-Z]{6}[0-9]{6}"
+    buf = rng.integers(33, 127, size=n, dtype=np.uint8)
+    for k, p in enumerate(rng.integers(0, n - 16, size=200).tolist() + [126, n - 12]):
+        buf[p : p + 12] = np.frombuffer(b"QWERTY%06d" % k, np.uint8)
+    cp = compile_multi([pat])
+    st = sd.StrideDfaScanner(cp.dfa, cp.max_len, n)
+    bm, _walks, _conv = st.run_t(torch.from_numpy(st.prep_t(buf)).to(dev))
+    flags = st.flags_np(bm.cpu().numpy(), n // 512)
+    t0 = time.perf_counter()
+    want = golden.block_counts(golden.dfa_scan_ends_fast(cp.dfa, buf), 512) > 0
+    golden_s = time.perf_counter() - t0
+    missed = int((want & (flags == 0)).sum())
+    check(want.sum() >= 150 and missed == 0,
+          f"golden: B2 missed {missed} of {int(want.sum())} exact match blocks")
+    res["B2"] = {"bytes": n, "pattern": pat.decode(), "match_blocks": int(want.sum()),
+                 "flagged": int(flags.sum()), "golden_s": golden_s}
+    log(f"golden superset: B1 flags cover all {res['B1']['match_blocks']} exact start blocks of "
+        f"32 MiB ({res['B1']['flagged']} flagged); B2 ({pat.decode()}) all "
+        f"{res['B2']['match_blocks']} exact end blocks of 2 MiB ({res['B2']['flagged']} flagged)")
+    return res
+
+
+def phase_byte_scan(torch, np, rng):
+    """make_sharded_scan (the byte-level step: literal scan or DFA walk,
+    block counts, their sum) on two lanes of the card at 32 MiB per
+    shard equals the same call on two CPU shards, bit for bit."""
+    from grab_tpu_torch.parallel.scan_step import make_sharded_scan
+    from grab_tpu_torch.regex.compiler import compile_pattern
+
+    res = []
+    data = rng.integers(32, 127, size=2 * BUF, dtype=np.uint8)
+    data[::97] = 0x0A
+    for p in rng.integers(0, 2 * BUF - 16, size=500).tolist() + [BUF - 4, 2 * BUF - 10]:
+        data[p : p + 10] = np.frombuffer(b"fooxyzzbar", np.uint8)
+    host = torch.from_numpy(data)
+    for pattern in (rb"fooxyzzbar", rb"[f-g][o-p]+[x-z]{4}[a-d]+r"):
+        cp = compile_pattern(pattern)
+        t0 = time.perf_counter()
+        counts, total = make_sharded_scan(cp, ["cuda:0", "cuda:0"], BUF)(host.to("cuda:0"))
+        counts = [c.cpu() for c in counts]
+        total = int(total)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, want_total = make_sharded_scan(cp, ["cpu", "cpu"], BUF)(host)
+        cpu_s = time.perf_counter() - t0
+        check(all(c.device.type == "cpu" for c in want), "byte scan: the CPU call left the CPU")
+        check(all(torch.equal(a, b) for a, b in zip(counts, want)) and total == int(want_total)
+              and total >= 500, f"byte scan {pattern!r}: card counts != CPU counts "
+              f"({total} vs {int(want_total)})")
+        res.append({"pattern": pattern.decode(), "literal": bool(cp.literals), "total": total,
+                    "card_s": card_s, "cpu_s": cpu_s})
+        log(f"make_sharded_scan on cuda:0,cuda:0 == cpu,cpu: {pattern.decode()} "
+            f"({'literal' if cp.literals else 'DFA walk'}, {total} candidates, {card_s:.2f} s "
+            f"on the card, {cpu_s:.2f} s on the CPU)")
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2007,6 +2243,7 @@ def main() -> int:
     # earlier phases' trees and buffers stay what they were
     rng4 = np.random.default_rng(SEED + 4)
     rng5 = np.random.default_rng(SEED + 5)
+    rng8 = np.random.default_rng(SEED + 8)
     sms = props.multi_processor_count
     refs = HostRefs(here)
     try:
@@ -2065,6 +2302,10 @@ def main() -> int:
             ]
             gres, one_literal = phase_groups(torch, np, trees, tree, tmp, outs)
             vres = phase_server(torch, np, here, trees, tmp, outs, one_literal)
+            mres = phase_multihost(torch, np, here, tree, trees, tmp)
+            spres = phase_spot(torch, np, here, tree)
+            gdres = phase_golden(torch, np, rng8)
+            byres = phase_byte_scan(torch, np, rng8)
     finally:
         refs.close()
 
@@ -2114,6 +2355,12 @@ def main() -> int:
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: never launched on a main path")
+    # the multi-host path's launches, summed over its two host processes
+    by_name = {k["name"]: k for k in kernels}
+    for name, key in (("core_word_bitmap", "corewords"), ("fused_word_bitmap", "fused")):
+        k = by_name[name]
+        k["launches_multihost"] = sum(r["launches"]["hosts2"][key] for r in mres)
+        check(k["launches_multihost"] > 0, f"{k['name']}: never launched on the multi-host path")
     detail = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "sm_count": sms, "max_sm_clock_mhz": sm_clock,
@@ -2122,6 +2369,7 @@ def main() -> int:
         "stride_scanner": scres, "alpharun_sets": ares, "xor_sets": xres, "fused_sets": fres,
         "dfa_walk": wres, "transpose_shapes": tres, "transpose_paths": tpaths,
         "bloom_sets": bres, "bloom_path": bpath, "groups": gres, "server": vres,
+        "multihost": mres, "spot": spres, "golden": gdres, "byte_scan": byres,
         "main_path": runs, "route_paths": route_runs,
         "tree": {"bytes": tree_bytes, "files": n_files},
         "route_trees": {k: v[1] for k, v in trees.items()},
@@ -2141,4 +2389,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-run"] and sys.argv[3:4] == ["--"]:
+        sys.exit(host_run(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

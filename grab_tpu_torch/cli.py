@@ -6,10 +6,10 @@ scan runs on the CUDA card; GRAB_TPU_TORCH_DEVICE=cpu runs the
 kernels' plain PyTorch versions on the CPU instead, and a
 comma-separated list of torch devices names the -n N shard devices.
 ``--via <socket>`` as the first argument sends the rest to a running
-scan server (grab_tpu_torch.server). What the port does not serve yet
-is refused with one stderr line naming its ROADMAP item and exit 255:
-recursive multi-host (-r with --hosts / JAX_NUM_PROCESSES); without -r,
-multi-host gets the reference's own refusal.
+scan server (grab_tpu_torch.server). ``--hosts N --pid P --coordinator
+HOST:PORT -r`` runs one host of a multi-host scan (parallel/hostrun.py,
+over torch.distributed); without -r, multi-host gets the reference's own
+refusal.
 
 Flag surface mirrors the reference exactly
 (greppin src/main.cc:103-161 + greppin extensions,
@@ -37,8 +37,10 @@ README.md:16-31):
           torch.profiler trace of the whole scan, written to
           D/trace.json (Chrome trace format)
   --hosts N --pid P --coordinator HOST:PORT, --outdir D
-          multi-host mode: recursive only, as in the reference; the
-          recursive scan is not ported yet (ROADMAP A11), refused
+          multi-host mode (BASELINE config 5), recursive only: one
+          command per host; host 0 serves the store on HOST:PORT and
+          prints the globally ordered output, --outdir is the shared
+          directory for outputs beyond the gather cap
 
 Exit codes follow the reference: 0 on success regardless of matches,
 255 on setup errors (SURVEY §3.5).
@@ -97,7 +99,7 @@ def parse_args(argv: List[str]):
             i += 1
             opts["trace"] = argv[i]
         elif a == "--hosts":
-            # BASELINE config 5: one command per host (refused: ROADMAP A11)
+            # BASELINE config 5: one command per host
             i += 1
             opts["hosts"] = int(argv[i])
         elif a == "--pid":
@@ -107,7 +109,7 @@ def parse_args(argv: List[str]):
             i += 1
             opts["coordinator"] = argv[i]
         elif a == "--outdir":
-            # shared-dir fallback for outputs beyond the DCN gather cap
+            # shared-dir fallback for outputs beyond the gather cap
             i += 1
             opts["outdir"] = argv[i]
         elif a == "--":
@@ -289,14 +291,30 @@ def main(
 
         manifest = ResumeManifest(opts["resume"])
 
-    if opts["hosts"] or os.environ.get("JAX_NUM_PROCESSES"):
-        if not opts["recursive"]:
-            print("Multihost support only for recursive grabs.", file=err)
-        else:
-            print("tpugrep: multi-host mode is not ported yet (ROADMAP A11)", file=err)
+    multihost = bool(
+        opts["hosts"] or os.environ.get("JAX_NUM_PROCESSES")
+    )
+    if multihost and not opts["recursive"]:
+        print("Multihost support only for recursive grabs.", file=err)
         return 255
 
     with trace_ctx:
+        if multihost:
+            from grab_tpu_torch.parallel.hostrun import run_multihost
+
+            rc = run_multihost(
+                engine,
+                paths[0],
+                emit,
+                err=err,
+                coordinator=opts["coordinator"],
+                num_processes=opts["hosts"] or None,
+                process_id=opts["pid"],
+                outdir=opts["outdir"],
+                stats=opts["stats"],
+            )
+            out.flush()
+            return rc
         if opts["recursive"]:
             if opts["cores"] > 1 and manifest is None:
                 from grab_tpu_torch.parallel.runner import run_parallel

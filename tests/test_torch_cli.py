@@ -6,14 +6,18 @@ tests/test_conformance.py plus a planted corpus whose files are larger
 than the 2 MiB CPU scan buffer, so they span batches and their halos.
 The port runs with GRAB_TPU_TORCH_DEVICE=cpu: the kernels' plain
 PyTorch versions. Every single-device plan is served, -n N caps at the
-shard devices and prints what -n 1 prints, and --via goes to the scan
-server; recursive multi-host, still out of the port, must exit 255 with
-one stderr line naming its ROADMAP item, never a quiet host replay, and
+shard devices and prints what -n 1 prints, --via goes to the scan
+server, recursive multi-host (run here as a session of one host in a
+subprocess) prints what the reference's single-process run prints, and
 multi-host without -r gets the reference's own line.
 """
 
 import io
+import os
 import re
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -23,10 +27,39 @@ from grab_tpu import cli as ref_cli
 from grab_tpu_torch import cli as port_cli
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HOST_ENV = ("JAX_NUM_PROCESSES", "JAX_PROCESS_ID", "JAX_COORDINATOR_ADDRESS")
+
+
 def _run(cli, argv):
     out, err = io.BytesIO(), io.StringIO()
     rc = cli.main(list(argv), out=out, err=err)
     return rc, out.getvalue(), err.getvalue()
+
+
+def _one_host(argv, by_env=False):
+    """The port's CLI as a multi-host session of one host (its own
+    store on a free localhost port), in a subprocess so no session stays
+    in the test process: by flags (--hosts 1 --pid 0 --coordinator) or by
+    the launcher's environment. → (rc, stdout, stderr)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    env = {k: v for k, v in os.environ.items() if k not in HOST_ENV}
+    env.update(GRAB_TPU_TORCH_DEVICE="cpu", GRAB_TPU_KV_TIMEOUT_MS="60000", PYTHONPATH=REPO)
+    if by_env:
+        env.update(JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0", JAX_COORDINATOR_ADDRESS=addr)
+    else:
+        argv = ["--hosts", "1", "--pid", "0", "--coordinator", addr] + list(argv)
+    p = subprocess.Popen([sys.executable, "-m", "grab_tpu_torch.cli"] + argv, cwd=REPO, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = p.communicate(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    return p.returncode, out, err.decode(errors="replace")
 
 
 @pytest.fixture(autouse=True)
@@ -209,7 +242,7 @@ def test_device_scanner_flags_match_reference(planted):
 
 @pytest.mark.parametrize(
     "argv,item",
-    [  # item: the ROADMAP item; A6-A10 have landed and are served, A11 refused
+    [  # item: the ROADMAP item; A6-A11 have landed and are served
         ([".{0,2}[0-9]{11}"], "ROADMAP A7"),  # alphabet-run plan
         # no stride plan (1001 states x 6 classes): the last-resort walk
         ([".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"], "ROADMAP A6"),
@@ -236,16 +269,21 @@ def test_out_of_slice_refused(corpus, tmp_path, monkeypatch, argv, item):
             assert _run(port_cli, argv)[:2] == want and want[0] == 0
         assert want[1] or "needle" not in argv  # the corpus holds no 11-digit run
         return
-    rc, out, err = _run(port_cli, argv)
-    if item in ("ROADMAP A6", "ROADMAP A7", "ROADMAP A8"):
-        # in the slice now: served, byte for byte as the reference
-        assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0
-        if item == "ROADMAP A8":
-            assert out.count(b"\n") >= 4
+    if item == "ROADMAP A11":
+        # in the slice now: a multi-host session (here of one host)
+        # prints what the reference's single-process run prints
+        single = [a for i, a in enumerate(argv)
+                  if a not in ("--hosts", "--pid") and argv[i - 1] not in ("--hosts", "--pid")]
+        want = _run(ref_cli, single)[:2]
+        rc, out, err = _one_host(single)
+        assert (rc, out) == want and rc == 0 and out.count(b"\n") >= 4, err[-2000:]
         return
-    assert rc == 255 and out == b""
-    lines = err.strip().splitlines()
-    assert len(lines) == 1 and item in lines[0] and "not ported" in lines[0]
+    rc, out, err = _run(port_cli, argv)
+    assert item in ("ROADMAP A6", "ROADMAP A7", "ROADMAP A8")
+    # in the slice now: served, byte for byte as the reference
+    assert (rc, out) == _run(ref_cli, argv)[:2] and rc == 0
+    if item == "ROADMAP A8":
+        assert out.count(b"\n") >= 4
 
 
 def test_via_and_big_batches_refused(corpus, tmp_path, monkeypatch):
@@ -253,9 +291,13 @@ def test_via_and_big_batches_refused(corpus, tmp_path, monkeypatch):
     # without one listening the connect fails as the reference's does
     with pytest.raises(OSError):
         _run(port_cli, ["--via", str(tmp_path / "no.sock"), "-r", "needle", str(corpus)])
-    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")  # multi-host by environment: refused
-    rc, out, err = _run(port_cli, ["-r", "needle", str(corpus)])
-    assert rc == 255 and out == b"" and "ROADMAP A11" in err
+    # multi-host by environment is served now (ROADMAP A11); without a
+    # coordinator it fails at once, before any store is started
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    for k in HOST_ENV[1:]:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
+        _run(port_cli, ["-r", "needle", str(corpus)])
     monkeypatch.delenv("JAX_NUM_PROCESSES")
     # a 20-literal batch is served now (two compare buckets, ROADMAP A9)
     pats = tmp_path / "many.txt"
@@ -300,7 +342,9 @@ def test_stats_with_n_prints_rate(corpus, monkeypatch):
 def test_multihost_without_recursion(corpus, monkeypatch, how):
     """Multi-host without -r: the reference's own line and exit 255,
     after the pattern compile (a bad pattern reports that first); with
-    -r the port still refuses, naming ROADMAP A11."""
+    -r the port serves it (a session of one host, by flags or by the
+    launcher's environment) and prints what the reference's
+    single-process run prints."""
     argv = ["needle", str(corpus / "oneline")]
     if how == "--hosts":
         argv = ["--hosts", "2"] + argv
@@ -313,8 +357,10 @@ def test_multihost_without_recursion(corpus, monkeypatch, how):
         rc, out, err = _run(cli, bad)
         assert rc == 255 and out == b"" and "pattern compile error" in err
         assert "Multihost" not in err
-    rc, out, err = _run(port_cli, argv[:-2] + ["-r", "needle", str(corpus)])
-    assert rc == 255 and out == b"" and "ROADMAP A11" in err
+    monkeypatch.delenv("JAX_NUM_PROCESSES", raising=False)
+    want = _run(ref_cli, ["-r", "needle", str(corpus)])[:2]
+    rc, out, err = _one_host(["-r", "needle", str(corpus)], by_env=how != "--hosts")
+    assert (rc, out) == want and rc == 0 and out.count(b"\n") >= 4, err[-2000:]
 
 
 def test_cuda_device_without_card_raises(corpus, monkeypatch):

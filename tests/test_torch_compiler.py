@@ -159,6 +159,21 @@ assert b"".join(out).count(b"needle") >= 20000, len(out)
 cache = grab_tpu_torch.server._EngineCache()
 e1 = cache.engine_for([b"needle"], EngineConfig(device="cpu"))
 assert cache.engine_for([b"needle"], EngineConfig(device="cpu"))._scanner is e1._scanner
+import grab_tpu_torch.parallel.hostrun, grab_tpu_torch.spot, grab_tpu_torch.ops.class_prefilter
+from grab_tpu_torch import golden
+from grab_tpu_torch.ops.literal_scan import literal_matrix, literal_scan_bitmap
+from grab_tpu_torch.parallel.multihost import merge_host_outputs
+import os, tempfile
+with tempfile.TemporaryDirectory() as d:
+    for name, body in (("1.3.out", b"c"), ("0.0.out", b"a"), ("0.2.out", b"b")):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(body)
+    got = []
+    assert merge_host_outputs(d, got.append) == 3 and got == [b"a", b"b", b"c"]
+assert golden.block_counts(np.array([1, 0, 1, 1], bool), 2).tolist() == [1, 2]
+mat, lens = literal_matrix([b"needle"])
+hits = literal_scan_bitmap(mat, tuple(lens.tolist()), torch.frombuffer(bytearray(b"a needle"), dtype=torch.uint8))
+assert hits.nonzero().flatten().tolist() == [2]
 leaked = [m for m in sys.modules
           if m.split(".")[0] == "grab_tpu" or (m.split(".")[0] == "jax" and sys.modules[m] is not None)]
 assert not leaked, leaked

@@ -134,8 +134,10 @@ def test_nonexistent_path_through_server(sock, tree, monkeypatch):
 def test_usage_and_refusals_through_server(sock, tree, monkeypatch):
     rc, out, _ = _via(sock, ["needle"], monkeypatch)
     assert (rc, out) == _direct(port_cli, ["needle"])[:2] and rc == 1
+    # multi-host is served now (ROADMAP A11); without a coordinator the
+    # request fails at once, before any store starts, and the server goes on
     rc, out, err = _via(sock, ["--hosts", "2", "-r", "needle", str(tree)], monkeypatch)
-    assert rc == 255 and out == b"" and "ROADMAP A11" in err
+    assert rc == 255 and out == b"" and "coordinator" in err
     rc, out, err = _via(sock, ["--via", sock, "-r", "needle", str(tree)], monkeypatch)
     assert rc == 255 and out == b"" and "--via" in err
     rc, out, err = _via(sock, ["-r", "(unclosed", str(tree)], monkeypatch)
