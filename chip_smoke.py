@@ -109,7 +109,14 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      every block of an exact match from the port's ``golden``; and
      ``make_sharded_scan`` on ``cuda:0,cuda:0`` at 32 MiB per shard (a
      literal and a literal-free pattern) equals the same call on the
-     CPU;
+     CPU; then the bench, ``python -m grab_tpu_torch.bench`` as a
+     process at its full sizes (1 GiB headline, 256 MiB and 1 GiB
+     stacks): exit 0, the headline one B1 launch within 1.05 of the run's
+     measured roofline, each secondary metric once, finite, not suspect,
+     every kernel but B7 launched; and the dry run
+     (``grab_tpu_torch.dryrun``): ``entry()`` gives (1, 2) on the card,
+     ``dryrun_multichip`` passes on ``cuda:0,cuda:0`` (and over every
+     card when there are two or more);
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
      bound; the last-resort walk per 32 MiB buffer; then a miss or
@@ -1638,18 +1645,9 @@ ROUTE_COMMANDS = [
 
 
 def counters():
-    from grab_tpu_torch.ops import alpharun as ar
-    from grab_tpu_torch.ops import bloom as bl
-    from grab_tpu_torch.ops import classseq as cs
-    from grab_tpu_torch.ops import corewords as cw
-    from grab_tpu_torch.ops import fused as fu
-    from grab_tpu_torch.ops import stridedfa as sd
-    from grab_tpu_torch.ops import xorfilter as xf
+    from grab_tpu_torch.bench import kernel_wrappers
 
-    return {"corewords": cw.core_word_flags, "classseq": cs.classseq_flags,
-            "stride": sd.stride_dfa_scan, "alpharun": ar.alpharun_flags,
-            "xor": xf.xor_word_flags, "fused": fu.fused_word_flags,
-            "transpose": sd.stride_transpose, "bloom": bl.bloom_word_flags}
+    return kernel_wrappers()
 
 
 def reset_counters():
@@ -2192,6 +2190,250 @@ def phase_byte_scan(torch, np, rng):
     return res
 
 
+BENCH_GROUP = 32 * 512  # bytes of one bitmap group (32 rows of 128 words)
+
+
+def bench_needles(bench):
+    """One blob of every needle the bench's word kernels look for: the
+    headline literal (B1), a digit run of 14 (B3), the XOR / bloom
+    literals (B5, B8), the fused ensemble's literals and its sequences'
+    needles (B6), the class sequence's (B4)."""
+    sets = bench.bench_sets()
+    needles = ([bench.LITERAL, b"01234567890123"] + sets["lits"][:4] + sets["lits100"][:2]
+               + sets["lits100"][-4:] + [b"123ab", b"12345ab", b"1234abc"])
+    return b"~".join(needles)
+
+
+def planted_words(torch, bench, size: int, seed: int, blob: bytes):
+    """The bench's lowercase corpus of ``size`` bytes (its generator and
+    seed, on the card) with ``blob`` planted in the first group, across
+    the first group boundary, mid-buffer, past 2^31 bits (byte 2^28) and
+    in the last group, ending in the last word. → (words, the spots)."""
+    dev = torch.device("cuda")
+    w = bench.device_words(size // 512, seed, dev)
+    flat = w.view(torch.uint8).view(-1)
+    src = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
+    spots = [0, BENCH_GROUP - 40, 3 * BENCH_GROUP + 1, (size >> 1) + 3, (1 << 28) + 5,
+             (1 << 29) + 2, (3 << 28) + 7, size - BENCH_GROUP + 11, size - len(blob)]
+    spots = sorted({p for p in spots if p <= size - len(blob)})
+    for p in spots:
+        flat[p : p + len(blob)] = src
+    return w, spots
+
+
+def stream_digit_runs(torch, np, wt):
+    """64 digits planted into streams of a born-transposed [s_w * 128,
+    128] buffer (flat word j * 16384 + s is stream s's word j): stream 0
+    from word 0, the last stream in its last 16 words, and three streams
+    past 2^31 bits. → [(first word, stream)]."""
+    s_w = wt.shape[0] // 128
+    st = wt.view(s_w, 16384)
+    digits = torch.from_numpy(np.frombuffer((b"0123456789" * 7)[:64], "<i4").copy())
+    runs = [(0, 0), (s_w - 16, 16383), (s_w // 4 + 4, 5000), (s_w // 2, 9999),
+            (3 * s_w // 4 + 3, 77)]
+    for j0, s in runs:
+        st[j0 : j0 + 16, s] = digits.to(wt.device)
+    return runs
+
+
+def phase_bench_shapes(torch, np):
+    """Each kernel wrapper the bench times, once on the card at the
+    bench's shapes and tables (B1, B2, B3, B5, B8 over 1 GiB; B4 and B6
+    over 256 MiB), on its lowercase corpus with hits planted in the first
+    and last groups and past 2^31 bits, against its plain version over
+    the whole buffer: bitmap, packed flags and total (B2: bitmap and
+    exit states) equal, and every planted spot's groups flagged.
+    → {counter key: [case results]}."""
+    from grab_tpu_torch import bench
+    from grab_tpu_torch.ops import alpharun as ar
+    from grab_tpu_torch.ops import bloom as bl
+    from grab_tpu_torch.ops import classseq as cs
+    from grab_tpu_torch.ops import corewords as cw
+    from grab_tpu_torch.ops import fused as fu
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.ops import xorfilter as xf
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    dev = torch.device("cuda")
+    big, n = 1 << 30, 256 << 20
+    sets = bench.bench_sets()
+    blob = bench_needles(bench)
+    res = {}
+
+    def held(key, label, w, spots, kernel, plain):
+        total, packed, bm = kernel(w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm_ref = plain(w)
+        total_ref, packed_ref = cw.packed_block_flags(bm_ref)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(torch.equal(bm, bm_ref) and torch.equal(packed, packed_ref)
+              and torch.equal(total, total_ref),
+              f"bench shape {label}: kernel != plain over {w.shape[0] - 8} rows "
+              f"(total {int(total)} vs {int(total_ref)})")
+        flagged = (packed != 0).cpu()
+        missed = [p for p in spots
+                  if not flagged[p // BENCH_GROUP : (p + len(blob)) // BENCH_GROUP + 1].any()]
+        check(not missed, f"bench shape {label}: planted spots {missed} not flagged")
+        res.setdefault(key, []).append({
+            "case": label, "bytes": (w.shape[0] - 8) * 512, "groups": int(packed.shape[0]),
+            "total": int(total), "planted": len(spots), "equal_plain": True,
+            "plain_s": plain_s})
+
+    # 1 GiB linear: the headline's corpus (seed 42) and its kernels
+    w, spots = planted_words(torch, bench, big, 42, blob)
+    t = cw.CoreWordScanner([bench.LITERAL]).tests
+    held("corewords", "B1 headline literal", w, spots,
+         lambda x: cw.core_word_flags(x, t.tab, t.k, t.n_words, t.masked),
+         lambda x: cw.core_word_bitmap_torch(x, t.tab, t.k, t.n_words, t.masked))
+    amode, units = ar.plan_for(bench.ALPHA_MIN)
+    held("alpharun", f"B3 digit runs {amode} {units}", w, spots,
+         lambda x: ar.alpharun_flags(x, bench.ALPHA_RANGES, amode, units),
+         lambda x: ar.alpharun_bitmap_torch(x, bench.ALPHA_RANGES, amode, units))
+    xt = xf.XorWordTests(sets["lits"])
+    held("xor", "B5 xor100", w, spots, lambda x: xf.xor_word_flags(x, xt),
+         lambda x: xf.xor_bitmap_torch(x, xt.tables(), xt.consts()))
+    bt = bl.BloomWordTests(sets["lits"])
+    held("bloom", "B8 bloom100", w, spots, lambda x: bl.bloom_word_flags(x, bt),
+         lambda x: bl.bloom_bitmap_torch(x, bt.tbl, bt.levels))
+    del w
+    torch.cuda.empty_cache()
+
+    # 256 MiB linear: B4 and the three B6 ensembles
+    w, spots = planted_words(torch, bench, n, 700, blob)
+    seqs1 = cs.compile_sequences([bench.CLASSSEQ])
+    held("classseq", "B4 classseq", w, spots, lambda x: cs.classseq_flags(x, seqs1),
+         lambda x: cs.classseq_bitmap_torch(x, seqs1))
+    for label, seqs in (("lits100", None), ("lits100_seq2", bench.seq_masks(2)),
+                        ("allinone", bench.seq_masks(10))):
+        sc = fu.FusedEnsembleScanner(sets["lits100"],
+                                     cs.compile_sequences(seqs) if seqs else None)
+        held("fused", f"B6 fused_{label}", w, spots, lambda x, sc=sc: fu.fused_word_flags(x, sc),
+             lambda x, sc=sc: fu.fused_bitmap_torch(x, sc))
+    del w
+    torch.cuda.empty_cache()
+
+    # 1 GiB born transposed (16384 word steps): the walk of each plan
+    wt = bench.device_words(big // 512, 900, dev)[: big // 512]
+    runs = stream_digit_runs(torch, np, wt)
+    for name, pat, plan in bench.WALKS:
+        cp = compile_multi([pat])
+        check(sd.stride_plan(cp.dfa) == plan, f"bench shape {pat!r}: not the {plan} plan")
+        tb = sd.StrideDfaTables(cp.dfa, plan)
+        entries = torch.full((sd.STREAM_ROWS, 128), tb.start, dtype=torch.int32, device=dev)
+        bm, ex = sd.stride_dfa_scan(wt, tb, entries)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm_ref, ex_ref = sd.stride_dfa_scan_torch(wt, tb, entries)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(torch.equal(bm, bm_ref) and torch.equal(ex, ex_ref),
+              f"bench shape B2 {pat!r} ({plan}): kernel != plain over 1 GiB")
+        if pat.startswith(rb"[0-9]"):  # the planted runs are the only digits
+            missed = [(j0, s) for j0, s in runs if not bool(
+                bm[(j0 * 128 + s // 128) // 16 : ((j0 + 16) * 128 + s // 128) // 16 + 1,
+                   s % 128].any())]
+            check(not missed, f"bench shape B2 {pat!r}: planted runs {missed} not flagged")
+        res.setdefault("stride", []).append({
+            "case": f"B2 {name[:-14]} {pat.decode()}", "bytes": big, "word_steps":
+            wt.shape[0] // 128, "mode": plan[0], "k": plan[1],
+            "flagged_words": int(torch.count_nonzero(bm)), "equal_plain": True,
+            "plain_s": plain_s})
+    del wt, bm, bm_ref
+    torch.cuda.empty_cache()
+    log("bench shapes: kernel == plain, bit for bit, with every planted spot flagged: "
+        + "; ".join(f"{c['case']} ({c['bytes'] >> 20} MiB, plain {c['plain_s']:.1f}s)"
+                    for cases in res.values() for c in cases))
+    return res
+
+
+BENCH_MAX_ROOFLINE = 1.05  # the headline's vs_measured_roofline above this is a timing fault
+
+
+def phase_bench(torch, here):
+    """``python -m grab_tpu_torch.bench`` at full size as a process: exit
+    0; stdout's last line the headline (one B1 launch over 1 GiB, at
+    most BENCH_MAX_ROOFLINE of this run's measured roofline); every
+    secondary metric once on stderr, finite, above 0, not suspect; every
+    kernel but B7 launched. → the values, launches and wall."""
+    import math
+
+    from grab_tpu_torch.bench import METRIC, SECONDARY_METRICS
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GRAB_TPU_TORCH_DEVICE", "GRAB_TPU_BENCH_MB")}
+    env["PYTHONPATH"] = here
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "grab_tpu_torch.bench"], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"bench: rc {r.returncode}: {r.stderr[-3000:]}")
+    head = json.loads(r.stdout.strip().splitlines()[-1])
+    check(head["metric"] == METRIC and head["backend"] == "cuda" and head["launches"] == 1
+          and head["bytes"] == 1 << 30, f"bench: headline {head}")
+    check(head["vs_measured_roofline"] <= BENCH_MAX_ROOFLINE,
+          f"bench: headline at {head['vs_measured_roofline']} of the measured roofline")
+    lines, launches = [], None
+    for raw in r.stderr.splitlines():
+        if raw.startswith("{"):
+            obj = json.loads(raw)
+            if "metric" in obj:
+                lines.append(obj)
+            elif "bench_launches" in obj:
+                launches = obj["bench_launches"]
+    names = [l["metric"] for l in lines]
+    check(sorted(names) == sorted(SECONDARY_METRICS),
+          f"bench: secondary names {names} != {list(SECONDARY_METRICS)}")
+    roof = head["measured_roofline_bytes_per_sec"]
+    for l in lines:
+        check("error" not in l and not l.get("suspect") and math.isfinite(l["value"])
+              and l["value"] > 0, f"bench: {l}")
+        l["share_of_roofline"] = l["value"] / roof
+    check(launches is not None
+          and all(launches.get(k, 0) > 0 for k in counters() if k != "transpose"),
+          f"bench: launches {launches}")
+    log(f"bench in {wall:.1f}s: {head['value'] / 1e9:.1f} GB/s, "
+        f"{head['vs_measured_roofline']} of the measured {roof / 1e9:.1f} GB/s; "
+        + ", ".join(f"{l['metric'][:-14]} {l['value'] / 1e9:.1f}" for l in lines))
+    return {"headline": head, "secondary": lines, "launches": launches, "wall_s": wall,
+            "stderr_notes": [x for x in r.stderr.splitlines() if x.startswith("bench:")]}
+
+
+def phase_dryrun(torch):
+    """grab_tpu_torch.dryrun on the card: ``entry()`` gives (1, 2);
+    ``dryrun_multichip`` on two lanes of the card, and over every card
+    when there are two or more. → results, launches per run."""
+    from grab_tpu_torch import dryrun
+
+    reset_counters()
+    fn, args = dryrun.entry("cuda")
+    got = tuple(int(x) for x in fn(*args))
+    entry_launches = read_counters()
+    check(got == (1, 2), f"dryrun entry: {got} != (1, 2)")
+    check(entry_launches["stride"] > 0, f"dryrun entry: launches {entry_launches}")
+    runs = []
+    specs = [(2, TWO_LANES)]
+    if torch.cuda.device_count() >= 2:
+        specs.append((torch.cuda.device_count(), "cuda"))
+    for n, spec in specs:
+        buf = io.StringIO()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = dryrun.dryrun_multichip(n, spec, out=buf)
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        check(launches["corewords"] > 0, f"dryrun {n} on {spec}: launches {launches}")
+        ratio = json.loads(buf.getvalue().splitlines()[0])
+        res["engine"].pop("output")
+        runs.append({"n": n, "devices": spec, "ratio": ratio["value"], "parts": res,
+                     "launches": launches, "wall_s": wall})
+        log(f"dryrun_multichip({n}, {spec!r}): ratio {ratio['value']}, "
+            f"{res['engine']['lines']} lines, sums {res['scan_step']['total']} / "
+            f"{res['word_scan']['total']}, B1 {launches['corewords']} launches, {wall:.2f} s")
+    return {"entry": list(got), "entry_launches": entry_launches, "runs": runs}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2306,6 +2548,10 @@ def main() -> int:
             spres = phase_spot(torch, np, here, tree)
             gdres = phase_golden(torch, np, rng8)
             byres = phase_byte_scan(torch, np, rng8)
+            bsres = phase_bench_shapes(torch, np)
+            torch.cuda.empty_cache()  # the bench process takes ~6 GiB of the card
+            bnres = phase_bench(torch, here)
+            dres = phase_dryrun(torch)
     finally:
         refs.close()
 
@@ -2321,46 +2567,53 @@ def main() -> int:
         }
 
     common = ("ms", "plain_ms", "copy_ms", "bound_ms", "bound_by")
-    kernels = [
-        row("core_word_bitmap", "grab_tpu_torch/csrc/corewords.cu",
+    by_key = {  # by the counters' short names
+        "corewords": row("core_word_bitmap", "grab_tpu_torch/csrc/corewords.cu",
             "grab_tpu/ops/pallas_corewords.py:259", launches, kres,
             next(r for r in kres if r["set"] == "linus"),
             ("set", "k", "n_words", "masked") + common),
-        row("classseq_word_bitmap", "grab_tpu_torch/csrc/classseq.cu",
+        "classseq": row("classseq_word_bitmap", "grab_tpu_torch/csrc/classseq.cu",
             "grab_tpu/ops/pallas_classseq.py:122",
             sum(r["launches"]["classseq"] for r in route_runs), cres, cres[0],
             ("set", "seqs") + common),
-        row("stride_dfa_scan", "grab_tpu_torch/csrc/stridedfa.cu",
+        "stride": row("stride_dfa_scan", "grab_tpu_torch/csrc/stridedfa.cu",
             "grab_tpu/ops/pallas_stridedfa.py:521",
             sum(r["launches"]["stride"] for r in route_runs), sres, sres[0],
             ("pattern", "mode", "k") + common + ("chain_ms",)),
-        row("alpharun_word_bitmap", "grab_tpu_torch/csrc/alpharun.cu",
+        "alpharun": row("alpharun_word_bitmap", "grab_tpu_torch/csrc/alpharun.cu",
             "grab_tpu/ops/pallas_alpharun.py:212",
             sum(r["launches"]["alpharun"] for r in route_runs), ares, ares[0],
             ("set", "mode", "units") + common),
-        row("xor_word_bitmap", "grab_tpu_torch/csrc/xorfilter.cu",
+        "xor": row("xor_word_bitmap", "grab_tpu_torch/csrc/xorfilter.cu",
             "grab_tpu/ops/pallas_xorfilter.py:256",
             sum(r["launches"]["xor"] for r in route_runs), xres, xres[0],
             ("set", "banks", "groups", "copies", "remainder") + common),
-        row("fused_word_bitmap", "grab_tpu_torch/csrc/fused.cu",
+        "fused": row("fused_word_bitmap", "grab_tpu_torch/csrc/fused.cu",
             "grab_tpu/ops/pallas_fused.py:182",
             sum(r["launches"]["fused"] for r in route_runs), fres, fres[0],
             ("set", "buckets", "banks", "seqs") + common),
-        row("stride_transpose", "grab_tpu_torch/csrc/transpose.cu",
+        "transpose": row("stride_transpose", "grab_tpu_torch/csrc/transpose.cu",
             "grab_tpu/ops/pallas_stridedfa.py:631", t_launches, tres, tres[0],
             ("s_w",) + common + ("library_ms",)),
-        row("bloom_word_bitmap", "grab_tpu_torch/csrc/bloom.cu",
+        "bloom": row("bloom_word_bitmap", "grab_tpu_torch/csrc/bloom.cu",
             "grab_tpu/ops/pallas_bloom.py:129", b_launches, bres, bres[0],
             ("set", "levels", "keys") + common),
-    ]
+    }
+    kernels = list(by_key.values())
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: never launched on a main path")
     # the multi-host path's launches, summed over its two host processes
-    by_name = {k["name"]: k for k in kernels}
-    for name, key in (("core_word_bitmap", "corewords"), ("fused_word_bitmap", "fused")):
-        k = by_name[name]
+    for key in ("corewords", "fused"):
+        k = by_key[key]
         k["launches_multihost"] = sum(r["launches"]["hosts2"][key] for r in mres)
         check(k["launches_multihost"] > 0, f"{k['name']}: never launched on the multi-host path")
+    # the bench's process (every kernel but B7) and the dry run's (entry:
+    # B2; B1); the bench's shapes held against the plain versions
+    for key, k in by_key.items():
+        k["launches_bench"] = bnres["launches"][key]
+        k["bench_shapes"] = bsres.get(key, [])
+        k["launches_dryrun"] = dres["entry_launches"][key] + sum(
+            r["launches"][key] for r in dres["runs"])
     detail = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "sm_count": sms, "max_sm_clock_mhz": sm_clock,
@@ -2370,6 +2623,7 @@ def main() -> int:
         "dfa_walk": wres, "transpose_shapes": tres, "transpose_paths": tpaths,
         "bloom_sets": bres, "bloom_path": bpath, "groups": gres, "server": vres,
         "multihost": mres, "spot": spres, "golden": gdres, "byte_scan": byres,
+        "bench_shapes": bsres, "bench": bnres, "dryrun": dres,
         "main_path": runs, "route_paths": route_runs,
         "tree": {"bytes": tree_bytes, "files": n_files},
         "route_trees": {k: v[1] for k, v in trees.items()},

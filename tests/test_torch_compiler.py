@@ -171,6 +171,13 @@ with tempfile.TemporaryDirectory() as d:
     got = []
     assert merge_host_outputs(d, got.append) == 3 and got == [b"a", b"b", b"c"]
 assert golden.block_counts(np.array([1, 0, 1, 1], bool), 2).tolist() == [1, 2]
+import io
+import grab_tpu_torch.bench
+from grab_tpu_torch import dryrun
+fn, args = dryrun.entry("cpu")
+assert tuple(int(x) for x in fn(*args)) == (1, 2)
+res = dryrun.dryrun_multichip(2, "cpu,cpu", out=io.StringIO())
+assert res["engine"]["lines"] > 0 and res["word_scan"]["total"] >= 2, res
 mat, lens = literal_matrix([b"needle"])
 hits = literal_scan_bitmap(mat, tuple(lens.tolist()), torch.frombuffer(bytearray(b"a needle"), dtype=torch.uint8))
 assert hits.nonzero().flatten().tolist() == [2]
