@@ -47,8 +47,15 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          40 long literals + 3 sequences, one bucket + 3 sequences, and the
          ensemble DeviceScanner builds for the 100-literal + 10-regex
          batch (``batch4``);
-       - the last-resort DFA walk (plain PyTorch on both devices) on
-         the card against itself on the CPU at 2 MiB;
+       - the last-resort DFA walk (csrc/dfa_walk.cu, one launch per
+         buffer) against its plain version on the card, total and packed
+         flags: ``NO_PLAN`` (no stride plan) at 2 MiB and 32 MiB,
+         ``.{0,2}[a-z ]{11}`` at 512 KiB, segments that are no multiple
+         of the 512-byte block (2064 KiB: 64 of 33,024 bytes; 48 KiB: 64
+         of 768 with a 768-byte halo) and a class table too large for
+         shared memory (1901 states x 64 classes, read from global
+         memory) at 32 MiB; matches planted across stream boundaries
+         and ending in the halo must be flagged;
        - B7 stride transpose ([16384, 512], [16384, 32], [16384, 640]
          int32 stream rows), beside one PyTorch call of the same
          function (``a.t().contiguous()``); then the scanner entries
@@ -77,7 +84,7 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          across stream boundaries, one over 4 KiB, and one file over
          32 MiB, which is replayed in full;
        - alpha (``.{0,2}[0-9]{11}``; a backreference pattern with no
-         automaton; a fine-mode plan), the last-resort walk (an
+         automaton; a fine-mode plan), the last-resort walk kernel (an
          automaton without a stride plan; a stride-eligible one in a
          512 KiB buffer), and the literal ensemble: the 100-literal +
          10-regex batch (fused, and split with GRAB_TPU_NO_FUSED=1),
@@ -119,8 +126,9 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      card when there are two or more);
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
-     bound; the last-resort walk per 32 MiB buffer; then a miss or
-     near-miss scan per route over the full-size trees: end-to-end
+     bound (the walk's also beside its chain of dependent lookups);
+     then a miss or near-miss scan per route over the full-size trees
+     (the last-resort walk's ``-r NO_PLAN tree`` among them): end-to-end
      rate, device idle share, the profiler's kernel times and the
      memsets and copies on the stream per scan;
   6. the card's name and power limit, a ``{"kernels": [...]}`` line and,
@@ -1150,48 +1158,109 @@ def phase_fused(torch, np, rng, rate, rng5):
 
 NO_PLAN = rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"  # 1001 states, no stride plan
 WALK_HIT = b"a1gAN" + b"b2hBO" * 199
+WIDE_BODY = bytes(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"[(i * 7) % 62]
+                  for i in range(1900))
+WALK_CASES = [  # (label, pattern, its planted match, buffer bytes, stream_seg)
+    ("NO_PLAN 2 MiB", NO_PLAN, WALK_HIT, 2 << 20, 32768),
+    ("NO_PLAN 32 MiB", NO_PLAN, WALK_HIT, BUF, 32768),
+    (".{0,2}[a-z ]{11} 512 KiB", rb".{0,2}[a-z ]{11}", b"hello world", 512 << 10, 32768),
+    ("NO_PLAN 2064 KiB (33,024-byte segments)", NO_PLAN, WALK_HIT, 2064 << 10, 32768),
+    ("NO_PLAN 48 KiB (768-byte segments)", NO_PLAN, WALK_HIT, 48 << 10, 768),
+    # 1901 states x 64 classes: a class table of 243,328 bytes, past the
+    # kernel's 200 KiB of shared memory (its global-memory form)
+    ("wide table 32 MiB", b".{0,2}" + WIDE_BODY, WIDE_BODY, BUF, 32768),
+]
+WALK_SHARED_TABLE = 200 << 10  # csrc/dfa_walk.cu kSharedTable
+WALK_OPS_PER_STEP = 4  # byte extract, IMAD, AND, OR of the entry (loads not counted)
 
 
-def phase_walk(torch, np, rng):
-    """The last-resort DFA walk (plain PyTorch): on the card against
-    itself on the CPU at 2 MiB, then its time per 32 MiB buffer."""
+def phase_walk(torch, np, rng, sm_count, sm_clock_mhz, link_cycles):
+    """The last-resort DFA walk, csrc/dfa_walk.cu (one launch per buffer
+    through DfaWalkMember.packed), against its plain version on the card,
+    total and packed flags, at every WALK_CASES geometry; every whole
+    planted match (at 100, across stream boundaries ending in the halo,
+    at the buffer's end) must be flagged. At 32 MiB: the kernel's ms
+    (CUDA events after a sleep kernel, median of 5) beside the plain
+    version's seconds, a device copy, the bound and the chain of
+    dependent lookups. The first two buffers are the draws of ``rng``
+    that earlier versions of this phase made; the others come from a
+    stream of their own, so the later phases' trees stay what they were."""
+    import statistics
+
     from grab_tpu_torch.ops import dfa_scan as ds
     from grab_tpu_torch.ops.stridedfa import stride_plan
     from grab_tpu_torch.regex.compiler import compile_multi
 
     dev = torch.device("cuda")
-    dfa = compile_multi([NO_PLAN]).dfa
-    check(stride_plan(dfa) is None, "the walk's pattern has a stride plan")
-    out = {}
-    for label, size in (("2 MiB", 2 << 20), ("32 MiB", BUF)):
-        m = ds.DfaWalkMember(dfa, size, 512, 32768, 0x1000)
-        buf = rng.integers(32, 127, size=size, dtype=np.uint8)
-        for pos in (5000, 32768 * 3 - 400, size - len(WALK_HIT) - 9):
-            buf[pos : pos + len(WALK_HIT)] = np.frombuffer(WALK_HIT, np.uint8)
+    rng10 = np.random.default_rng(SEED + 10)
+    rate = sm_count * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    dfas = {}
+    out = []
+    for i, (label, pattern, hit, size, stream_seg) in enumerate(WALK_CASES):
+        if pattern not in dfas:
+            dfas[pattern] = compile_multi([pattern]).dfa
+        dfa = dfas[pattern]
+        if pattern == NO_PLAN:
+            check(stride_plan(dfa) is None, "the walk's pattern has a stride plan")
+        m = ds.DfaWalkMember(dfa, size, 512, stream_seg, 0x1000)
+        seg = size // m.n_streams
+        h = min(0x1000, seg)
+        table_bytes = m.tables.class_table.nbytes
+        check(label.startswith("wide") == (table_bytes > WALK_SHARED_TABLE),
+              f"walk {label}: a class table of {table_bytes} bytes")
+        buf = (rng if i < 2 else rng10).integers(32, 127, size=size, dtype=np.uint8)
+        spots = [100, size - len(hit)]
+        if len(hit) // 2 < h:  # across a stream boundary, ending in the halo
+            spots += [s * seg - len(hit) // 2 for s in range(1, m.n_streams, 3)]
+        for pos in spots:
+            buf[pos : pos + len(hit)] = np.frombuffer(hit, np.uint8)
+        whole = [pos for pos in spots if buf[pos : pos + len(hit)].tobytes() == hit]
         d = torch.from_numpy(buf).to(dev)
-        if size == 2 << 20:
-            m.packed(d)  # warm-up: the tables' upload, the allocator
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        before = ds.dfa_walk_flags.launches
         total, packed = m.packed(d)
         torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        res = {"n_streams": m.n_streams, "steps": 32768 + 0x1000, "card_s": card_s,
-               "flagged_blocks": int(total.item())}
-        check(int(total.item()) >= 3, f"walk at {label}: planted matches not flagged")
-        if size == 2 << 20:
-            t0 = time.perf_counter()
-            total_c, packed_c = m.packed(torch.from_numpy(buf))
-            res["cpu_s"] = time.perf_counter() - t0
-            check(torch.equal(total.cpu(), total_c) and torch.equal(packed.cpu(), packed_c),
-                  "walk on the card != walk on the CPU at 2 MiB")
-            flags = m.flags_np(packed.cpu().numpy(), size // 512)
-            check(flags[5000 // 512 + 1] == 1 or flags[(5000 + len(WALK_HIT)) // 512] == 1,
-                  "walk missed the planted match's end")
-        out[label] = res
-        log(f"last-resort walk, {label} ({m.n_streams} streams x {res['steps']} steps): "
-            f"{card_s:.3f} s on the card" + (f", {res['cpu_s']:.3f} s on the CPU, equal"
-                                             if "cpu_s" in res else ""))
+        check(ds.dfa_walk_flags.launches == before + 1, f"walk {label}: not one launch")
+        t0 = time.perf_counter()
+        total_p, packed_p = ds.dfa_walk_flags_torch(d, m.tables, m.n_streams, 0x1000, 512)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(torch.equal(total, total_p) and torch.equal(packed, packed_p),
+              f"walk {label}: kernel != plain (total {int(total.item())} vs "
+              f"{int(total_p.item())})")
+        flags = m.flags_np(packed.cpu().numpy(), size // 512)
+        missed = [p for p in whole if flags[(p + len(hit) - 1) // 512] != 1]
+        check(len(whole) >= 2 and not missed, f"walk {label}: planted matches missed at {missed}")
+        check(int(total.item()) == int(flags.sum()), f"walk {label}: total != flagged blocks")
+        res = {"case": label, "pattern": pattern.decode()[:40], "n_streams": m.n_streams,
+               "seg": seg, "halo": h, "states": dfa.n_states, "classes": dfa.n_classes,
+               "table": "shared" if table_bytes <= WALK_SHARED_TABLE else "global",
+               "table_bytes": table_bytes, "flagged_blocks": int(total.item()),
+               "planted": len(whole), "max_abs_err": 0, "plain_s": plain_s}
+        if size == BUF:
+            ring = [d] + [d.clone() for _ in range(3)]
+            ms = statistics.median(
+                time_cuda(torch, lambda j: m.packed(ring[j % 4]), 4, warmup=1) for _ in range(5))
+            dst = torch.empty_like(d)
+            copy_ms = time_cuda(torch, lambda j: dst.copy_(ring[j % 4]), 40)
+            steps = size + (m.n_streams - 1) * h  # bytes walked, halos included
+            n_bytes = size + table_bytes + 256 + packed.numel() * 4 + 4
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = WALK_OPS_PER_STEP * steps / rate * 1e3
+            chain_ms = (seg + h) * link_cycles / (sm_clock_mhz * 1e6) * 1e3
+            res.update(ms=ms, plain_ms=plain_s * 1e3, copy_ms=copy_ms,
+                       bound_ms=max(bytes_ms, ops_ms),
+                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                       bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, chain_ms=chain_ms,
+                       link_cycles=link_cycles, links_per_stream=seg + h, library_ms=None)
+            del ring, dst
+        out.append(res)
+        log(f"walk == plain, {label} ({m.n_streams} streams x {seg} + {h} bytes, {res['table']} "
+            f"table of {table_bytes} B): {res['flagged_blocks']} flagged blocks, "
+            f"{len(whole)} planted matches flagged; plain {plain_s:.3f} s"
+            + (f"; kernel {res['ms']:.4f} ms per 32 MiB (median of 5), d2d copy "
+               f"{res['copy_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+               f"chain {res['chain_ms']:.4f} ms ({seg + h} links at {link_cycles:.1f} cycles)"
+               if "ms" in res else ""))
     return out
 
 
@@ -1510,7 +1579,8 @@ def write_route_trees(np, rng, tmp):
     ssizes = [int(x) for x in np.exp(rng.uniform(np.log(4 << 10), np.log(1 << 20), size=30))]
     s_bytes = write_files(np, stree, soup, ssizes + [1 << 20], plant_batch)
 
-    # wtree: ~3 MB of text for the last-resort walk (seconds per buffer)
+    # wtree: ~3 MB of text for the last-resort walk (its host-only scan
+    # runs the regex VM at ~1 MB/s)
     def plant_walk(data, i):
         n = data.size
         for pos in (n // 3, n - 1200):
@@ -1624,9 +1694,9 @@ ROUTE_COMMANDS = [
     route("alpha-fine", ["-2", "-r"], ".{0,2}([0-9]{6})\\1", "mtree", "alpha",
           ["AlphaRunScanner"], ["alpharun"]),
     route("walk-noplan", ["-r", "-l", "-O"], NO_PLAN.decode(), "wtree", "dfa", ["DfaWalkMember"],
-          []),
-    route("walk-smallbuf", ["-r"], ".{0,2}[a-z ]{11}", "wtree", "dfa", ["DfaWalkMember"], [],
-          cfg={"scan_buf_size": 512 << 10}),
+          ["walk"]),
+    route("walk-smallbuf", ["-r"], ".{0,2}[a-z ]{11}", "wtree", "dfa", ["DfaWalkMember"],
+          ["walk"], cfg={"scan_buf_size": 512 << 10}),
     route("batch4-fused", ["-r", "-H", "-O"], "@batch4.txt", "ctree", "literal", [FUSED],
           ["fused"]),
     route("batch4-split", ["-r", "-H", "-O"], "@batch4.txt", "ctree", "literal",
@@ -2391,7 +2461,7 @@ def phase_bench(torch, here):
               and l["value"] > 0, f"bench: {l}")
         l["share_of_roofline"] = l["value"] / roof
     check(launches is not None
-          and all(launches.get(k, 0) > 0 for k in counters() if k != "transpose"),
+          and all(launches.get(k, 0) > 0 for k in counters() if k not in ("transpose", "walk")),
           f"bench: launches {launches}")
     log(f"bench in {wall:.1f}s: {head['value'] / 1e9:.1f} GB/s, "
         f"{head['vs_measured_roofline']} of the measured {roof / 1e9:.1f} GB/s; "
@@ -2471,7 +2541,7 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build_cuda(
         ["corewords", "classseq", "stridedfa", "alpharun", "xorfilter", "fused",
-         "transpose", "bloom"])
+         "transpose", "bloom", "dfa_walk"])
     t_cuda = time.time() - t0
     t0 = time.time()
     native_ok = native.available()
@@ -2510,7 +2580,7 @@ def main() -> int:
             ares = phase_alpharun(torch, np, rng, rate)
             xres = phase_xor(torch, np, rng, rate)
             fres = phase_fused(torch, np, rng, rate, rng5)
-            wres = phase_walk(torch, np, rng)
+            wres = phase_walk(torch, np, rng, sms, sm_clock, sres[0]["link_cycles"])
             tres = phase_transpose(torch, np, rng4)
             tpaths, t_launches = phase_transpose_paths(torch, np, rng4)
             bres = phase_bloom(torch, np, rng4, rate)
@@ -2529,6 +2599,8 @@ def main() -> int:
                 phase_e2e(torch, np, gbulk, ["-E", "-r", ".{0,2}(?:[0-9a-zA-Z]{4})+", gbulk],
                           "stride", False),
                 phase_e2e(torch, np, tree, ["-r", ".{0,2}[0-9]{11}", tree], "alpharun", False),
+                # the last-resort walk: an automaton without a stride plan
+                phase_e2e(torch, np, tree, ["-r", NO_PLAN.decode(), tree], "walk", False),
                 # 100 long literals alone: the split path's one XOR filter
                 phase_e2e(torch, np, tree,
                           ["-r", "-S", "-H", os.path.join(tmp, "lits100.txt"), tree], "xor",
@@ -2563,7 +2635,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head.get("library_ms"),
             "copy_ms": head["copy_ms"],
-            "by_case": [{k: r[k] for k in keys} for r in res],
+            "by_case": [{k: r.get(k) for k in keys} for r in res],
         }
 
     common = ("ms", "plain_ms", "copy_ms", "bound_ms", "bound_by")
@@ -2598,6 +2670,11 @@ def main() -> int:
         "bloom": row("bloom_word_bitmap", "grab_tpu_torch/csrc/bloom.cu",
             "grab_tpu/ops/pallas_bloom.py:129", b_launches, bres, bres[0],
             ("set", "levels", "keys") + common),
+        "walk": row("dfa_scan_bitmap", "grab_tpu_torch/csrc/dfa_walk.cu",
+            "grab_tpu/ops/dfa_scan.py:46",
+            sum(r["launches"]["walk"] for r in route_runs), wres, wres[1],
+            ("case", "n_streams", "seg", "table", "flagged_blocks", "plain_s") + common
+            + ("chain_ms",)),
     }
     kernels = list(by_key.values())
     for k in kernels:

@@ -9,8 +9,7 @@ grab_tpu: the host layers it needs are its own copies.
 Package layout:
   regex/          pattern parser, NFA/DFA compiler, exact matchers (copy)
   ops/            GPU kernels' wrappers + plain PyTorch versions
-                  (alpharun.py also holds the compiler's numpy planner;
-                  dfa_scan.py is plain PyTorch on both devices)
+                  (alpharun.py also holds the compiler's numpy planner)
   csrc/           CUDA C++ kernel sources (sm_90a)
   ingest/         corpus walker + batch packer + native pread/walk library
   format/         reference-exact output grammar (copy)

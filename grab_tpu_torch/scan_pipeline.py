@@ -27,7 +27,7 @@ device and their decoded flags unioned on the host:
     plan, in a buffer of at least 1 MiB (the strided-DFA walk with its
     window pass or threading fixpoint, ops/stridedfa.py);
   * dfa: any other automaton of at most 2048 states, by the last-resort
-    multi-stream walk (ops/dfa_scan.py, plain PyTorch).
+    multi-stream walk (ops/dfa_scan.py, csrc/dfa_walk.cu).
 
 ``resolve_devices`` reads the device setting (one device, every
 visible card, or a list of shard devices); ``DeviceScanner.replica``

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Times kernels of the grab_tpu_torch port on one CUDA card, in the
 checkout it runs from: the strided-DFA walk (B2), the fused ensemble
-(B6), the alphabet runs (B3), the class sequences (B4) and the XOR
-filter (B5).
+(B6), the alphabet runs (B3), the class sequences (B4), the XOR filter
+(B5) and the last-resort DFA walk (W1).
 
-    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor]
+    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor|walk]
 
 Run it from the root of two checkouts in turns (A, B, B, A) on one
 card, one after the other, to compare two versions of the kernels: both
@@ -24,7 +24,10 @@ copies queued on the stream around it); ``xor`` every literal count of
 chip_smoke.phase_xor the same way and, in a checkout whose wrapper
 chooses how many copies of the bank rows a block keeps
 (ops/xorfilter.py bank_copies), each other form that fits, forced, on
-those sets and on 150, 250 and 500 literals (7, 11 and 22 bank rows).
+those sets and on 150, 250 and 500 literals (7, 11 and 22 bank rows);
+``walk`` the 32 MiB cases of chip_smoke.WALK_CASES through
+``DfaWalkMember.packed`` (the kernel, or the plain loop in a checkout
+without one), the median of 5 runs of 4 launches.
 """
 
 import importlib.util
@@ -189,6 +192,24 @@ def xor_times(rng, dev):
     return res
 
 
+def walk_times(rng, dev):
+    import statistics
+
+    from grab_tpu_torch.ops import dfa_scan as ds
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    res = {}
+    for label, pattern, _hit, size, stream_seg in own_smoke().WALK_CASES:
+        if size != cs.BUF:
+            continue
+        m = ds.DfaWalkMember(compile_multi([pattern]).dfa, size, 512, stream_seg, 0x1000)
+        buf = rng.integers(32, 127, size=size, dtype=np.uint8)
+        ring = [torch.from_numpy(buf).to(dev) for _ in range(4)]
+        res[label] = statistics.median(
+            cs.time_cuda(torch, lambda i: m.packed(ring[i % 4]), 4, warmup=1) for _ in range(5))
+    return res
+
+
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "both"
     if not torch.cuda.is_available():
@@ -207,6 +228,8 @@ def main() -> int:
         out["seq"] = seq_times(rng, dev)
     if what == "xor":
         out["xor"] = xor_times(rng, dev)
+    if what == "walk":
+        out["walk_ms"] = walk_times(rng, dev)
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

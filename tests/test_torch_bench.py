@@ -26,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _reference_source() -> str:
-    with open(os.path.join(REPO, "bench.py")) as f:
+    with open(os.path.join(REPO, "bench.py"), encoding="utf-8") as f:
         return f.read()
 
 

@@ -1,11 +1,17 @@
 """The port's last-resort DFA walk against the JAX package's.
 
-``expand_byte_table``, the multi-stream walk's match-end bitmap, the
-per-block counts and the DeviceScanner's "dfa" mode must equal the
+``expand_byte_table``, the kernel's class table, the multi-stream walk's
+match-end bitmap, the per-block counts, the packed block flags of
+``dfa_walk_flags`` and the DeviceScanner's "dfa" mode must equal the
 reference's exactly (tolerance: exact — every output is an integer or a
 bool). The JAX package computes this walk outside any Pallas kernel
-(``lax.scan``), so both sides are plain tensor code here.
+(``lax.scan``, jitted); on the CPU the port's wrapper runs its plain
+version, which is what these tests compare (the kernel itself, csrc/
+dfa_walk.cu, is held against it in tests/test_torch_gpu.py and
+chip_smoke.py).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -17,10 +23,18 @@ from grab_tpu.ops import dfa_scan as ref
 from grab_tpu.regex.compiler import compile_multi as ref_compile
 from grab_tpu_torch.ops import dfa_scan as port
 from grab_tpu_torch.regex.compiler import compile_multi
+from tests._torch_threads import _one_thread  # noqa: F401 (autouse: one intra-op thread)
 
 NO_PLAN = rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"  # 1001 states, no stride plan
 PATTERNS = [rb"needle", rb"[0-9]{3}-[0-9]{4}", rb".{0,2}[a-z ]{11,}", rb"a[0-9]*b",
             rb"\xff[\x80-\x9f]+\x00"]
+
+
+@functools.lru_cache(maxsize=None)
+def _dfas(pattern: bytes):
+    """(the reference's DFA, the port's DFA) of one pattern, compiled once
+    per test process."""
+    return ref_compile([pattern]).dfa, compile_multi([pattern]).dfa
 
 
 def _data(seed: int, n: int) -> np.ndarray:
@@ -37,7 +51,7 @@ def _data(seed: int, n: int) -> np.ndarray:
 
 @pytest.mark.parametrize("pattern", PATTERNS + [NO_PLAN], ids=lambda p: p.decode("latin-1")[:24])
 def test_expand_byte_table_identical(pattern):
-    r, p = ref_compile([pattern]).dfa, compile_multi([pattern]).dfa
+    r, p = _dfas(pattern)
     want = ref.expand_byte_table(r.table, r.class_map)
     got = port.expand_byte_table(p.table, p.class_map)
     assert got.dtype == want.dtype and got.shape == want.shape == (r.n_states, 256)
@@ -109,3 +123,104 @@ def test_dfa_flags_match_reference(pattern, buf_size, stream_seg):
     assert got.dtype == want.dtype and np.array_equal(got, want) and got.sum() > 0
     clean = np.full(buf_size, ord("-"), np.uint8)
     assert p.scan(clean).sum() == r.scan(clean).sum() == 0
+
+
+# -- the kernel's tables and the wrapper (dfa_walk_flags) -----------------------
+
+
+@pytest.mark.parametrize("pattern", PATTERNS + [NO_PLAN], ids=lambda p: p.decode("latin-1")[:24])
+def test_walk_class_table_decodes_to_reference(pattern):
+    """The class table (next state | accept bit) and the class map that
+    csrc/dfa_walk.cu reads decode to the reference's byte table and
+    accept mask."""
+    r, p = _dfas(pattern)
+    table, class_map = port.walk_class_table(p)
+    assert table.dtype == np.uint16 and table.shape == (r.n_states, r.n_classes)
+    assert class_map.dtype == np.uint8 and class_map.shape == (256,)
+    want = ref.expand_byte_table(r.table, r.class_map)
+    decoded = table[:, class_map]
+    assert np.array_equal(decoded & 0x7FFF, want)
+    accept = np.asarray(r.accept_mask, dtype=bool)
+    assert np.array_equal((decoded >> 15).astype(bool), accept[want])
+    assert accept[want].any()
+    dev_table, dev_map = port.WalkTables(p).kernel_on(torch.device("cpu"))
+    assert dev_table.numel() % 8 == 0 and np.array_equal(
+        dev_table.numpy().view(np.uint16)[: table.size], table.reshape(-1))
+    assert np.array_equal(dev_map.numpy(), class_map)
+
+
+WALK_HIT = b"a1gAN" + b"b2hBO" * 199  # one match of NO_PLAN, 1000 bytes
+
+# (buffer bytes, stream_seg): one stream; the 512 KiB route (16 streams of
+# 32 KiB); 64 streams of 768 bytes (1.5 blocks each, halo 768)
+WALK_GEOMETRIES = [(16 << 10, 32768), (512 << 10, 32768), (48 << 10, 768)]
+
+
+def _walk_buffer(n: int, seg: int, seed: int) -> tuple:
+    """Random bytes of both patterns' alphabets with NO_PLAN's match and
+    11-letter runs planted across stream boundaries and in the halo.
+    → (buffer, [(planted match, its end)] of those left whole)."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"a1gANb2hBOxyz ,.-Q", np.uint8)
+    buf = rng.choice(alpha, size=n)
+    spots = [(n // 2 - 6, b"hello world"), (n - len(WALK_HIT) - 12, b"abc def ghi")]
+    for s in range(1, n // seg):
+        b = s * seg
+        if s % 2 and seg > 2 * len(WALK_HIT):
+            spots.append((b - 300, WALK_HIT))  # ends in the next stream's head
+        else:
+            spots.append((b - 5, b"hello world"))  # across the boundary
+    spots += [(100, WALK_HIT), (n - len(WALK_HIT), WALK_HIT)]
+    for pos, hit in spots:
+        buf[pos : pos + len(hit)] = np.frombuffer(hit, np.uint8)
+    whole = [(hit, pos + len(hit) - 1) for pos, hit in spots
+             if buf[pos : pos + len(hit)].tobytes() == hit]
+    return buf, whole
+
+
+def _reference_packed(dfa, data: np.ndarray, n_streams: int, halo: int) -> np.ndarray:
+    """The JAX package's jitted walk → block counts > 0 → packed words."""
+    bm = ref.dfa_scan_bitmap(
+        jnp.asarray(ref.expand_byte_table(dfa.table, dfa.class_map)),
+        jnp.asarray(dfa.accept_mask), jnp.int32(dfa.start), jnp.asarray(data),
+        n_streams=n_streams, halo=halo)
+    flags = np.asarray(ref.bitmap_block_counts(bm, 512)) > 0
+    bits = flags.reshape(-1, 32).astype(np.uint64) << np.arange(32, dtype=np.uint64)
+    return bits.sum(axis=1).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("pattern", [NO_PLAN, rb".{0,2}[a-z ]{11}"], ids=["no-plan", "a-z11"])
+@pytest.mark.parametrize("n,stream_seg", WALK_GEOMETRIES, ids=["1-stream", "16x32K", "64x768"])
+def test_walk_flags_match_reference(pattern, n, stream_seg):
+    """DfaWalkMember.packed (dfa_walk_flags on a CPU tensor) == the
+    reference's walk + block counts, packed; every planted match's end
+    block is flagged; the CPU path launches no kernel."""
+    dfa, p = _dfas(pattern)
+    member = port.DfaWalkMember(p, n, 512, stream_seg, 0x1000)
+    n_streams = max(1, n // stream_seg)
+    assert member.n_streams == n_streams
+    data, planted = _walk_buffer(n, n // n_streams, len(pattern) + n)
+    want = _reference_packed(dfa, data, n_streams, 0x1000)
+    before = port.dfa_walk_flags.launches
+    total, packed = member.packed(torch.from_numpy(data))
+    assert port.dfa_walk_flags.launches == before
+    assert total.dtype == packed.dtype == torch.int32 and packed.shape == (n // 512 // 32,)
+    assert np.array_equal(packed.numpy(), want)
+    flags = member.flags_np(packed.numpy(), n // 512)
+    assert int(total) == int(flags.sum()) > 0
+    mine = [end for hit, end in planted if (hit == WALK_HIT) == (pattern == NO_PLAN)]
+    assert len(mine) >= 2 and all(flags[end // 512] for end in mine)
+
+
+def test_walk_rejects_ragged_geometry():
+    """Streams that do not divide the buffer raise, in the member (112
+    KiB: 3 streams of 32 KiB) and in the wrapper, as the reference's
+    reshape does."""
+    member = port.DfaWalkMember(_dfas(NO_PLAN)[1], 112 << 10, 512, 32768, 0x1000)
+    assert member.n_streams == 3
+    with pytest.raises(ValueError):
+        member.packed(torch.zeros(112 << 10, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        port.dfa_walk_flags(torch.zeros(48 << 10, dtype=torch.uint8), member.tables, 7)
+    with pytest.raises(ValueError):  # not whole 32-block groups
+        port.dfa_walk_flags(torch.zeros(8 << 10, dtype=torch.uint8), member.tables, 1)

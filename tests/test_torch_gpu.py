@@ -879,3 +879,73 @@ def test_server_warm_start_and_round_trip(cuda, tmp_path):
     finally:
         srv.terminate()
         srv.wait(timeout=30)
+
+
+# -- the last-resort DFA walk (csrc/dfa_walk.cu) --------------------------------
+
+WALK_NO_PLAN = rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"  # 1001 states, 7 classes
+WALK_HIT = b"a1gAN" + b"b2hBO" * 199
+WIDE_BODY = bytes(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"[(i * 7) % 62]
+                  for i in range(1900))
+# 1901 states x 64 classes: a class table of 243,328 bytes, over the
+# kernel's 200 KiB of shared memory (its global-memory form)
+WALK_WIDE = b".{0,2}" + WIDE_BODY
+WALK_CASES = {  # name: (pattern, its planted match, buffer bytes, stream_seg)
+    "no-plan-1x16K": (WALK_NO_PLAN, WALK_HIT, 16 << 10, 32768),
+    "no-plan-16x32K": (WALK_NO_PLAN, WALK_HIT, 512 << 10, 32768),
+    "no-plan-64x33024": (WALK_NO_PLAN, WALK_HIT, 2064 << 10, 32768),
+    "no-plan-64x768": (WALK_NO_PLAN, WALK_HIT, 48 << 10, 768),
+    "a-z11-16x32K": (rb".{0,2}[a-z ]{11}", b"hello world", 512 << 10, 32768),
+    "wide-64x32K": (WALK_WIDE, WIDE_BODY, 2 << 20, 32768),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_dfa_walk_kernel_matches_plain(cuda, case):
+    """One launch of csrc/dfa_walk.cu per buffer == the plain walk on the
+    card (total and packed flags), at one stream, 16 streams of 32 KiB,
+    segments of 33,024 and 768 bytes (blocks across streams), and a
+    class table in global memory; every planted match's end is flagged."""
+    from grab_tpu_torch.ops import dfa_scan as ds
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    pattern, hit, n, stream_seg = WALK_CASES[case]
+    member = ds.DfaWalkMember(compile_multi([pattern]).dfa, n, BLOCK, stream_seg, 0x1000)
+    if case.startswith("wide"):
+        assert member.tables.class_table.nbytes > 200 << 10
+    seg = n // member.n_streams
+    rng = np.random.default_rng(len(case))
+    buf = rng.integers(32, 127, size=n, dtype=np.uint8)
+    spots = [100, n - len(hit)]
+    spots += [s * seg - len(hit) // 2 for s in range(1, member.n_streams, 3)
+              if len(hit) // 2 < min(seg, 0x1000)]  # across a boundary, ends in the halo
+    for pos in spots:
+        buf[pos : pos + len(hit)] = np.frombuffer(hit, np.uint8)
+    data = torch.from_numpy(buf).to(cuda)
+    before = ds.dfa_walk_flags.launches
+    total, packed = member.packed(data)
+    assert ds.dfa_walk_flags.launches == before + 1
+    want = ds.dfa_walk_flags_torch(data, member.tables, member.n_streams, 0x1000, BLOCK)
+    torch.cuda.synchronize()
+    assert torch.equal(total, want[0]) and torch.equal(packed, want[1])
+    flags = member.flags_np(packed.cpu().numpy(), n // BLOCK)
+    for pos in spots:
+        if buf[pos : pos + len(hit)].tobytes() == hit:
+            assert flags[(pos + len(hit) - 1) // BLOCK] == 1, (case, pos)
+    assert int(total.item()) == int(flags.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_dfa_walk_wrapper_refuses_bad_input_on_card(cuda):
+    from grab_tpu_torch.ops import dfa_scan as ds
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    member = ds.DfaWalkMember(compile_multi([WALK_NO_PLAN]).dfa, 48 << 10, BLOCK, 768, 0x1000)
+    buf = torch.zeros((48 << 10) + 16, dtype=torch.uint8, device=cuda)
+    before = ds.dfa_walk_flags.launches
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        member.packed(buf[1 : 1 + (48 << 10)])
+    with pytest.raises(ValueError):  # 7 streams do not divide the buffer
+        ds.dfa_walk_flags(buf[: 48 << 10], member.tables, 7)
+    assert ds.dfa_walk_flags.launches == before
