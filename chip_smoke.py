@@ -47,15 +47,18 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          40 long literals + 3 sequences, one bucket + 3 sequences, and the
          ensemble DeviceScanner builds for the 100-literal + 10-regex
          batch (``batch4``);
-       - the last-resort DFA walk (csrc/dfa_walk.cu, one launch per
-         buffer) against its plain version on the card, total and packed
-         flags: ``NO_PLAN`` (no stride plan) at 2 MiB and 32 MiB,
+       - the last-resort DFA walk (csrc/dfa_walk.cu: the flags entry,
+         one launch per buffer, and the counts entry, two) against its
+         plain version on the card, total and packed flags and block
+         counts: ``NO_PLAN`` (no stride plan) at 2 MiB and 32 MiB,
          ``.{0,2}[a-z ]{11}`` at 512 KiB, segments that are no multiple
          of the 512-byte block (2064 KiB: 64 of 33,024 bytes; 48 KiB: 64
-         of 768 with a 768-byte halo) and a class table too large for
+         of 768 with a 768-byte halo), a class table too large for
          shared memory (1901 states x 64 classes, read from global
-         memory) at 32 MiB; matches planted across stream boundaries
-         and ending in the halo must be flagged;
+         memory) and an automaton that never synchronises
+         (``Q(?:[a-z]{2})*Q`` over one Q a stream) at 32 MiB; matches
+         planted across stream boundaries and ending in the halo must be
+         flagged; the bytes the fix-up re-walked, per case;
        - B7 stride transpose ([16384, 512], [16384, 32], [16384, 640]
          int32 stream rows), beside one PyTorch call of the same
          function (``a.t().contiguous()``); then the scanner entries
@@ -115,8 +118,9 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      ``-n 1`` over the tree; B1's flags (32 MiB) and B2's (2 MiB) cover
      every block of an exact match from the port's ``golden``; and
      ``make_sharded_scan`` on ``cuda:0,cuda:0`` at 32 MiB per shard (a
-     literal and a literal-free pattern) equals the same call on the
-     CPU; then the bench, ``python -m grab_tpu_torch.bench`` as a
+     literal and a literal-free pattern, the latter through the walk's
+     counts entry in two launches per shard) equals the same call on
+     the CPU; then the bench, ``python -m grab_tpu_torch.bench`` as a
      process at its full sizes (1 GiB headline, 256 MiB and 1 GiB
      stacks): exit 0, the headline one B1 launch within 1.05 of the run's
      measured roofline, each secondary metric once, finite, not suspect,
@@ -126,7 +130,8 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      card when there are two or more);
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
-     bound (the walk's also beside its chain of dependent lookups);
+     bound (the walk's also beside its longest chain of dependent
+     lookups, and the chain of one thread per stream);
      then a miss or near-miss scan per route over the full-size trees
      (the last-resort walk's ``-r NO_PLAN tree`` among them): end-to-end
      rate, device idle share, the profiler's kernel times and the
@@ -1160,6 +1165,7 @@ NO_PLAN = rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"  # 1001 states, no stride
 WALK_HIT = b"a1gAN" + b"b2hBO" * 199
 WIDE_BODY = bytes(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"[(i * 7) % 62]
                   for i in range(1900))
+NON_SYNC = rb"Q(?:[a-z]{2})*Q"  # the parity of the letters since a Q: never synchronises
 WALK_CASES = [  # (label, pattern, its planted match, buffer bytes, stream_seg)
     ("NO_PLAN 2 MiB", NO_PLAN, WALK_HIT, 2 << 20, 32768),
     ("NO_PLAN 32 MiB", NO_PLAN, WALK_HIT, BUF, 32768),
@@ -1169,22 +1175,29 @@ WALK_CASES = [  # (label, pattern, its planted match, buffer bytes, stream_seg)
     # 1901 states x 64 classes: a class table of 243,328 bytes, past the
     # kernel's 200 KiB of shared memory (its global-memory form)
     ("wide table 32 MiB", b".{0,2}" + WIDE_BODY, WIDE_BODY, BUF, 32768),
+    # lowercase text with one Q near each stream's start: every guess
+    # after it in the stream is wrong, so the fix-up re-walks the stream
+    ("Q(?:[a-z]{2})*Q 32 MiB (never synchronises)", NON_SYNC, b"QxyQ", BUF, 32768),
 ]
 WALK_SHARED_TABLE = 200 << 10  # csrc/dfa_walk.cu kSharedTable
 WALK_OPS_PER_STEP = 4  # byte extract, IMAD, AND, OR of the entry (loads not counted)
 
 
 def phase_walk(torch, np, rng, sm_count, sm_clock_mhz, link_cycles):
-    """The last-resort DFA walk, csrc/dfa_walk.cu (one launch per buffer
-    through DfaWalkMember.packed), against its plain version on the card,
-    total and packed flags, at every WALK_CASES geometry; every whole
-    planted match (at 100, across stream boundaries ending in the halo,
-    at the buffer's end) must be flagged. At 32 MiB: the kernel's ms
-    (CUDA events after a sleep kernel, median of 5) beside the plain
-    version's seconds, a device copy, the bound and the chain of
-    dependent lookups. The first two buffers are the draws of ``rng``
+    """The last-resort DFA walk, csrc/dfa_walk.cu, against its plain
+    version on the card at every WALK_CASES geometry: the flags entry
+    (one launch per buffer through DfaWalkMember.packed) total and packed
+    flags, and the counts entry (the sharded step's: the walk and its
+    count kernel) block counts, bit for bit; every whole planted match
+    (at 100, across stream boundaries ending in the halo, at the
+    buffer's end) must be flagged; the bytes the fix-up re-walked. At
+    32 MiB: each entry's ms (CUDA events after a sleep kernel, median of
+    5) beside the plain version's seconds, a device copy, the bound, the
+    longest chain of the segmented walk and the chain that one thread per
+    stream could not beat. The first two buffers are the draws of ``rng``
     that earlier versions of this phase made; the others come from a
-    stream of their own, so the later phases' trees stay what they were."""
+    stream of their own, so the later phases' trees stay what they were.
+    → (flags results, counts results)."""
     import statistics
 
     from grab_tpu_torch.ops import dfa_scan as ds
@@ -1195,7 +1208,7 @@ def phase_walk(torch, np, rng, sm_count, sm_clock_mhz, link_cycles):
     rng10 = np.random.default_rng(SEED + 10)
     rate = sm_count * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
     dfas = {}
-    out = []
+    out, counted = [], []
     for i, (label, pattern, hit, size, stream_seg) in enumerate(WALK_CASES):
         if pattern not in dfas:
             dfas[pattern] = compile_multi([pattern]).dfa
@@ -1208,7 +1221,11 @@ def phase_walk(torch, np, rng, sm_count, sm_clock_mhz, link_cycles):
         table_bytes = m.tables.class_table.nbytes
         check(label.startswith("wide") == (table_bytes > WALK_SHARED_TABLE),
               f"walk {label}: a class table of {table_bytes} bytes")
-        buf = (rng if i < 2 else rng10).integers(32, 127, size=size, dtype=np.uint8)
+        if pattern == NON_SYNC:
+            buf = rng10.integers(ord("a"), ord("z") + 1, size=size, dtype=np.uint8)
+            buf[7::seg] = ord("Q")
+        else:
+            buf = (rng if i < 2 else rng10).integers(32, 127, size=size, dtype=np.uint8)
         spots = [100, size - len(hit)]
         if len(hit) // 2 < h:  # across a stream boundary, ending in the halo
             spots += [s * seg - len(hit) // 2 for s in range(1, m.n_streams, 3)]
@@ -1216,17 +1233,31 @@ def phase_walk(torch, np, rng, sm_count, sm_clock_mhz, link_cycles):
             buf[pos : pos + len(hit)] = np.frombuffer(hit, np.uint8)
         whole = [pos for pos in spots if buf[pos : pos + len(hit)].tobytes() == hit]
         d = torch.from_numpy(buf).to(dev)
+        ds.fixup_bytes(dev, reset=True)
         before = ds.dfa_walk_flags.launches
         total, packed = m.packed(d)
         torch.cuda.synchronize()
         check(ds.dfa_walk_flags.launches == before + 1, f"walk {label}: not one launch")
+        check(ds.dfa_walk_flags.shared_table == (table_bytes <= WALK_SHARED_TABLE),
+              f"walk {label}: the table's place")
+        rewalked = ds.fixup_bytes(dev, reset=True)
+        before = ds.dfa_walk_counts.launches
+        counts = ds.dfa_walk_counts(d, m.tables, m.n_streams, 0x1000, 512)
+        torch.cuda.synchronize()
+        check(ds.dfa_walk_counts.launches == before + 2, f"walk {label}: counts not 2 launches")
         t0 = time.perf_counter()
-        total_p, packed_p = ds.dfa_walk_flags_torch(d, m.tables, m.n_streams, 0x1000, 512)
+        counts_p = ds.dfa_walk_counts_torch(d, m.tables, m.n_streams, 0x1000, 512)
+        torch.cuda.synchronize()
+        plain_counts_s = time.perf_counter() - t0
+        total_p, packed_p = ds.pack_block_flags(counts_p)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         check(torch.equal(total, total_p) and torch.equal(packed, packed_p),
               f"walk {label}: kernel != plain (total {int(total.item())} vs "
               f"{int(total_p.item())})")
+        check(torch.equal(counts, counts_p),
+              f"walk {label}: counts kernel != plain ({int(counts.sum())} vs "
+              f"{int(counts_p.sum())} candidates)")
         flags = m.flags_np(packed.cpu().numpy(), size // 512)
         missed = [p for p in whole if flags[(p + len(hit) - 1) // 512] != 1]
         check(len(whole) >= 2 and not missed, f"walk {label}: planted matches missed at {missed}")
@@ -1235,33 +1266,48 @@ def phase_walk(torch, np, rng, sm_count, sm_clock_mhz, link_cycles):
                "seg": seg, "halo": h, "states": dfa.n_states, "classes": dfa.n_classes,
                "table": "shared" if table_bytes <= WALK_SHARED_TABLE else "global",
                "table_bytes": table_bytes, "flagged_blocks": int(total.item()),
-               "planted": len(whole), "max_abs_err": 0, "plain_s": plain_s}
+               "candidates": int(counts.sum()), "planted": len(whole), "max_abs_err": 0,
+               "plain_s": plain_s, "rewalked_bytes": rewalked}
+        cres = {"case": label, "n_streams": m.n_streams, "seg": seg,
+                "candidates": int(counts.sum()), "max_abs_err": 0, "plain_s": plain_counts_s}
         if size == BUF:
             ring = [d] + [d.clone() for _ in range(3)]
-            ms = statistics.median(
-                time_cuda(torch, lambda j: m.packed(ring[j % 4]), 4, warmup=1) for _ in range(5))
+
+            def median_ms(fn):
+                return statistics.median(time_cuda(torch, fn, 4, warmup=1) for _ in range(5))
+
+            ms = median_ms(lambda j: m.packed(ring[j % 4]))
+            counts_ms = median_ms(
+                lambda j: ds.dfa_walk_counts(ring[j % 4], m.tables, m.n_streams, 0x1000, 512))
             dst = torch.empty_like(d)
             copy_ms = time_cuda(torch, lambda j: dst.copy_(ring[j % 4]), 40)
             steps = size + (m.n_streams - 1) * h  # bytes walked, halos included
-            n_bytes = size + table_bytes + 256 + packed.numel() * 4 + 4
-            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            geo = ds.walk_geometry(size, m.n_streams, 0x1000, 512)
+            link_s = link_cycles / (sm_clock_mhz * 1e6)
             ops_ms = WALK_OPS_PER_STEP * steps / rate * 1e3
-            chain_ms = (seg + h) * link_cycles / (sm_clock_mhz * 1e6) * 1e3
-            res.update(ms=ms, plain_ms=plain_s * 1e3, copy_ms=copy_ms,
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                       bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, chain_ms=chain_ms,
-                       link_cycles=link_cycles, links_per_stream=seg + h, library_ms=None)
+            for r, t, out_bytes in ((res, ms, packed.numel() * 4 + 4),
+                                    (cres, counts_ms, counts.numel() * 4)):
+                bytes_ms = (size + table_bytes + 256 + out_bytes) / HBM_BYTES_PER_S * 1e3
+                r.update(ms=t, copy_ms=copy_ms, bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms, library_ms=None,
+                         plain_ms=r["plain_s"] * 1e3,
+                         chain_ms=(geo.seg_bytes + ds.WARM) * link_s * 1e3,
+                         stream_chain_ms=(seg + h) * link_s * 1e3, link_cycles=link_cycles)
             del ring, dst
         out.append(res)
+        counted.append(cres)
         log(f"walk == plain, {label} ({m.n_streams} streams x {seg} + {h} bytes, {res['table']} "
             f"table of {table_bytes} B): {res['flagged_blocks']} flagged blocks, "
-            f"{len(whole)} planted matches flagged; plain {plain_s:.3f} s"
-            + (f"; kernel {res['ms']:.4f} ms per 32 MiB (median of 5), d2d copy "
-               f"{res['copy_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
-               f"chain {res['chain_ms']:.4f} ms ({seg + h} links at {link_cycles:.1f} cycles)"
+            f"{res['candidates']} candidates (counts == plain), {len(whole)} planted matches "
+            f"flagged, {rewalked} bytes re-walked by the fix-up; plain {plain_s:.3f} s"
+            + (f"; kernel {res['ms']:.4f} ms per 32 MiB (median of 5), counts "
+               f"{cres['ms']:.4f} ms, d2d copy {res['copy_ms']:.4f} ms, bound "
+               f"{res['bound_ms']:.4f} ms ({res['bound_by']}), longest chain "
+               f"{res['chain_ms']:.4f} ms ({geo.seg_bytes + ds.WARM} links at "
+               f"{link_cycles:.1f} cycles; a thread per stream: {res['stream_chain_ms']:.4f} ms)"
                if "ms" in res else ""))
-    return out
+    return out, counted
 
 
 # -- B7: the stride transpose, and B8: the bloom filter -------------------------
@@ -2228,7 +2274,11 @@ def phase_golden(torch, np, rng):
 def phase_byte_scan(torch, np, rng):
     """make_sharded_scan (the byte-level step: literal scan or DFA walk,
     block counts, their sum) on two lanes of the card at 32 MiB per
-    shard equals the same call on two CPU shards, bit for bit."""
+    shard equals the same call on two CPU shards, bit for bit; the
+    pattern without a literal goes through the walk's counts entry
+    (csrc/dfa_walk.cu) in at most two launches per shard, the literal
+    one launches none. → (results, the counts entry's launches)."""
+    from grab_tpu_torch.ops import dfa_scan as ds
     from grab_tpu_torch.parallel.scan_step import make_sharded_scan
     from grab_tpu_torch.regex.compiler import compile_pattern
 
@@ -2238,13 +2288,19 @@ def phase_byte_scan(torch, np, rng):
     for p in rng.integers(0, 2 * BUF - 16, size=500).tolist() + [BUF - 4, 2 * BUF - 10]:
         data[p : p + 10] = np.frombuffer(b"fooxyzzbar", np.uint8)
     host = torch.from_numpy(data)
+    launches = 0
     for pattern in (rb"fooxyzzbar", rb"[f-g][o-p]+[x-z]{4}[a-d]+r"):
         cp = compile_pattern(pattern)
+        ds.dfa_walk_counts.launches = 0
         t0 = time.perf_counter()
         counts, total = make_sharded_scan(cp, ["cuda:0", "cuda:0"], BUF)(host.to("cuda:0"))
         counts = [c.cpu() for c in counts]
         total = int(total)
         card_s = time.perf_counter() - t0
+        walk_launches = ds.dfa_walk_counts.launches
+        launches += walk_launches
+        check(walk_launches == (0 if cp.literals else 2 * 2),
+              f"byte scan {pattern!r}: {walk_launches} walk launches over 2 shards")
         t0 = time.perf_counter()
         want, want_total = make_sharded_scan(cp, ["cpu", "cpu"], BUF)(host)
         cpu_s = time.perf_counter() - t0
@@ -2253,11 +2309,11 @@ def phase_byte_scan(torch, np, rng):
               and total >= 500, f"byte scan {pattern!r}: card counts != CPU counts "
               f"({total} vs {int(want_total)})")
         res.append({"pattern": pattern.decode(), "literal": bool(cp.literals), "total": total,
-                    "card_s": card_s, "cpu_s": cpu_s})
+                    "card_s": card_s, "cpu_s": cpu_s, "walk_launches": walk_launches})
         log(f"make_sharded_scan on cuda:0,cuda:0 == cpu,cpu: {pattern.decode()} "
-            f"({'literal' if cp.literals else 'DFA walk'}, {total} candidates, {card_s:.2f} s "
-            f"on the card, {cpu_s:.2f} s on the CPU)")
-    return res
+            f"({'literal' if cp.literals else 'DFA walk'}, {total} candidates, {card_s:.3f} s "
+            f"on the card with {walk_launches} walk kernel launches, {cpu_s:.2f} s on the CPU)")
+    return res, launches
 
 
 BENCH_GROUP = 32 * 512  # bytes of one bitmap group (32 rows of 128 words)
@@ -2580,7 +2636,7 @@ def main() -> int:
             ares = phase_alpharun(torch, np, rng, rate)
             xres = phase_xor(torch, np, rng, rate)
             fres = phase_fused(torch, np, rng, rate, rng5)
-            wres = phase_walk(torch, np, rng, sms, sm_clock, sres[0]["link_cycles"])
+            wres, wcres = phase_walk(torch, np, rng, sms, sm_clock, sres[0]["link_cycles"])
             tres = phase_transpose(torch, np, rng4)
             tpaths, t_launches = phase_transpose_paths(torch, np, rng4)
             bres = phase_bloom(torch, np, rng4, rate)
@@ -2619,7 +2675,7 @@ def main() -> int:
             mres = phase_multihost(torch, np, here, tree, trees, tmp)
             spres = phase_spot(torch, np, here, tree)
             gdres = phase_golden(torch, np, rng8)
-            byres = phase_byte_scan(torch, np, rng8)
+            byres, walk_count_launches = phase_byte_scan(torch, np, rng8)
             bsres = phase_bench_shapes(torch, np)
             torch.cuda.empty_cache()  # the bench process takes ~6 GiB of the card
             bnres = phase_bench(torch, here)
@@ -2673,10 +2729,16 @@ def main() -> int:
         "walk": row("dfa_scan_bitmap", "grab_tpu_torch/csrc/dfa_walk.cu",
             "grab_tpu/ops/dfa_scan.py:46",
             sum(r["launches"]["walk"] for r in route_runs), wres, wres[1],
-            ("case", "n_streams", "seg", "table", "flagged_blocks", "plain_s") + common
-            + ("chain_ms",)),
+            ("case", "n_streams", "seg", "table", "flagged_blocks", "rewalked_bytes", "plain_s")
+            + common + ("chain_ms", "stream_chain_ms")),
     }
-    kernels = list(by_key.values())
+    # the walk's counts entry (the sharded byte step): launched by
+    # make_sharded_scan in phase_byte_scan, not by a CLI route
+    walk_counts = row("bitmap_block_counts", "grab_tpu_torch/csrc/dfa_walk.cu",
+                      "grab_tpu/ops/dfa_scan.py:94", walk_count_launches, wcres, wcres[1],
+                      ("case", "n_streams", "seg", "candidates", "plain_s") + common
+                      + ("chain_ms",))
+    kernels = list(by_key.values()) + [walk_counts]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: never launched on a main path")
     # the multi-host path's launches, summed over its two host processes
@@ -2697,7 +2759,8 @@ def main() -> int:
         "build_s": {"nvcc": t_cuda, "ingest": t_ingest}, "native_ingest": native_ok,
         "buf_size": BUF, "kernel_sets": kres, "classseq_sets": cres, "stride_plans": sres,
         "stride_scanner": scres, "alpharun_sets": ares, "xor_sets": xres, "fused_sets": fres,
-        "dfa_walk": wres, "transpose_shapes": tres, "transpose_paths": tpaths,
+        "dfa_walk": wres, "dfa_walk_counts": wcres, "transpose_shapes": tres,
+        "transpose_paths": tpaths,
         "bloom_sets": bres, "bloom_path": bpath, "groups": gres, "server": vres,
         "multihost": mres, "spot": spres, "golden": gdres, "byte_scan": byres,
         "bench_shapes": bsres, "bench": bnres, "dryrun": dres,

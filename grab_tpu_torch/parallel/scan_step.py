@@ -20,16 +20,17 @@ shard_map program; the port keeps the contract and drops the program:
 
 ``make_sharded_word_scan`` is the production step (the core-word
 kernel per device); ``make_sharded_scan`` keeps the reference's
-byte-granular step (ops/literal_scan.py or the ops/dfa_scan.py walk per
-shard, then per-block counts) in plain PyTorch on each shard device. No
-CLI route runs it: the port's CPU path is each kernel's plain version.
+byte-granular step: per shard, the last-resort walk's counts
+(ops/dfa_scan.py ``dfa_walk_counts``: on a card the csrc/dfa_walk.cu
+walk and its count kernel, on the CPU the plain walk) or the literal
+scan (ops/literal_scan.py, plain PyTorch, as the reference's is jnp),
+then per-block counts. No CLI route runs it.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from grab_tpu_torch.scan_pipeline import resolve_devices
@@ -93,16 +94,13 @@ def make_sharded_scan(compiled, devices: Sequence[torch.device], shard_bytes: in
     Returns ``fn(data) -> (counts, total)``: ``data`` is uint8
     [n_shards * shard_bytes] on any device; shard i is scanned on
     ``devices[i]`` by the byte-level literal scan or, for a pattern with
-    no literal factor, the multi-stream DFA walk with the HALO overlap.
+    no literal factor, the multi-stream DFA walk with the HALO overlap
+    (on a card: the walk kernel and its count kernel, two launches).
     ``counts`` holds each shard's int32 [shard_bytes / CANDIDATE_BLOCK]
     per-block candidate counts, on its device, and ``total`` their sum,
     int32 [1] on the first device (the reference's psum).
     """
-    from grab_tpu_torch.ops.dfa_scan import (
-        bitmap_block_counts,
-        dfa_scan_bitmap,
-        expand_byte_table,
-    )
+    from grab_tpu_torch.ops.dfa_scan import WalkTables, bitmap_block_counts, dfa_walk_counts
     from grab_tpu_torch.ops.literal_scan import literal_matrix, literal_scan_bitmap
     from grab_tpu_torch.scan_pipeline import CANDIDATE_BLOCK, HALO
 
@@ -110,21 +108,16 @@ def make_sharded_scan(compiled, devices: Sequence[torch.device], shard_bytes: in
     use_dfa = not compiled.literals and compiled.dfa is not None
     n_streams = max(1, shard_bytes // 32768)
     if use_dfa:
-        table = torch.from_numpy(
-            expand_byte_table(compiled.dfa.table, compiled.dfa.class_map).astype(np.int32)
-        )
-        accept = torch.from_numpy(np.asarray(compiled.dfa.accept_mask, dtype=bool))
-        start = int(compiled.dfa.start)
-        tables = [(table.to(d), accept.to(d)) for d in devices]
+        tables = WalkTables(compiled.dfa)  # uploaded once per device at first use
 
-        def bitmap(i, shard):
-            return dfa_scan_bitmap(*tables[i], start, shard, n_streams=n_streams, halo=HALO)
+        def block_counts(shard):
+            return dfa_walk_counts(shard, tables, n_streams, HALO, CANDIDATE_BLOCK)
     else:
         mat, lens = literal_matrix(compiled.literals)
         lengths = tuple(int(x) for x in lens)
 
-        def bitmap(i, shard):
-            return literal_scan_bitmap(mat, lengths, shard)
+        def block_counts(shard):
+            return bitmap_block_counts(literal_scan_bitmap(mat, lengths, shard), CANDIDATE_BLOCK)
 
     def fn(data: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
         if data.shape != (len(devices) * shard_bytes,) or data.dtype != torch.uint8:
@@ -134,7 +127,7 @@ def make_sharded_scan(compiled, devices: Sequence[torch.device], shard_bytes: in
         counts = []
         for i, d in enumerate(devices):
             shard = data[i * shard_bytes : (i + 1) * shard_bytes].to(d, non_blocking=True)
-            counts.append(bitmap_block_counts(bitmap(i, shard), CANDIDATE_BLOCK))
+            counts.append(block_counts(shard))
         first = devices[0]
         total = torch.zeros(1, dtype=torch.int32, device=first)
         for c in counts:

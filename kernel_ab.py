@@ -25,9 +25,11 @@ chip_smoke.phase_xor the same way and, in a checkout whose wrapper
 chooses how many copies of the bank rows a block keeps
 (ops/xorfilter.py bank_copies), each other form that fits, forced, on
 those sets and on 150, 250 and 500 literals (7, 11 and 22 bank rows);
-``walk`` the 32 MiB cases of chip_smoke.WALK_CASES through
+``walk`` the script's own WALK_AB_CASES (32 MiB: NO_PLAN, a table in
+global memory, an automaton that never synchronises) through
 ``DfaWalkMember.packed`` (the kernel, or the plain loop in a checkout
-without one), the median of 5 runs of 4 launches.
+without one), the median of 5 runs of 4 launches, and in a checkout
+with the segmented walk the bytes its fix-up re-walked.
 """
 
 import importlib.util
@@ -192,21 +194,44 @@ def xor_times(rng, dev):
     return res
 
 
+WALK_NO_PLAN = rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){200}"  # 1001 states, no stride plan
+WALK_WIDE = b".{0,2}" + bytes(  # 1901 states x 64 classes: the table in global memory
+    b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"[(i * 7) % 62]
+    for i in range(1900))
+WALK_AB_CASES = [  # (label, pattern, text), 32 MiB in 1,024 streams of 32 KiB
+    ("NO_PLAN 32 MiB", WALK_NO_PLAN, "printable"),
+    ("wide table 32 MiB", WALK_WIDE, "printable"),
+    # the parity of the letters since a Q never synchronises: one Q near
+    # each stream's start makes every later guess of the stream wrong
+    ("Q(?:[a-z]{2})*Q 32 MiB, one Q a stream", rb"Q(?:[a-z]{2})*Q", "lowercase + Q"),
+]
+
+
 def walk_times(rng, dev):
+    """The last-resort walk through DfaWalkMember.packed on WALK_AB_CASES
+    (median of 5 runs of 4 launches); in a checkout with the segmented
+    walk (ops/dfa_scan.py fixup_bytes), also the bytes its fix-up
+    re-walked in one launch."""
     import statistics
 
     from grab_tpu_torch.ops import dfa_scan as ds
     from grab_tpu_torch.regex.compiler import compile_multi
 
     res = {}
-    for label, pattern, _hit, size, stream_seg in own_smoke().WALK_CASES:
-        if size != cs.BUF:
-            continue
-        m = ds.DfaWalkMember(compile_multi([pattern]).dfa, size, 512, stream_seg, 0x1000)
-        buf = rng.integers(32, 127, size=size, dtype=np.uint8)
+    for label, pattern, text in WALK_AB_CASES:
+        m = ds.DfaWalkMember(compile_multi([pattern]).dfa, cs.BUF, 512, 32768, 0x1000)
+        if text == "printable":
+            buf = rng.integers(32, 127, size=cs.BUF, dtype=np.uint8)
+        else:
+            buf = rng.integers(ord("a"), ord("z") + 1, size=cs.BUF, dtype=np.uint8)
+            buf[7::32768] = ord("Q")
         ring = [torch.from_numpy(buf).to(dev) for _ in range(4)]
         res[label] = statistics.median(
             cs.time_cuda(torch, lambda i: m.packed(ring[i % 4]), 4, warmup=1) for _ in range(5))
+        if hasattr(ds, "fixup_bytes"):
+            ds.fixup_bytes(dev, reset=True)
+            m.packed(ring[0])
+            res[label + ", bytes re-walked"] = ds.fixup_bytes(dev, reset=True)
     return res
 
 

@@ -224,3 +224,191 @@ def test_walk_rejects_ragged_geometry():
         port.dfa_walk_flags(torch.zeros(48 << 10, dtype=torch.uint8), member.tables, 7)
     with pytest.raises(ValueError):  # not whole 32-block groups
         port.dfa_walk_flags(torch.zeros(8 << 10, dtype=torch.uint8), member.tables, 1)
+
+
+def _reference_counts(dfa, data: np.ndarray, n_streams: int, halo: int) -> np.ndarray:
+    """The JAX package's jitted walk → per-block candidate counts."""
+    bm = ref.dfa_scan_bitmap(
+        jnp.asarray(ref.expand_byte_table(dfa.table, dfa.class_map)),
+        jnp.asarray(dfa.accept_mask), jnp.int32(dfa.start), jnp.asarray(data),
+        n_streams=n_streams, halo=halo)
+    return np.asarray(ref.bitmap_block_counts(bm, 512))
+
+
+@pytest.mark.parametrize("pattern", [NO_PLAN, rb".{0,2}[a-z ]{11}"], ids=["no-plan", "a-z11"])
+@pytest.mark.parametrize("n,stream_seg", WALK_GEOMETRIES, ids=["1-stream", "16x32K", "64x768"])
+def test_walk_counts_match_reference(pattern, n, stream_seg):
+    """dfa_walk_counts on a CPU tensor (the sharded step's walk, plain)
+    == the reference's walk + block counts; no kernel launch."""
+    dfa, p = _dfas(pattern)
+    n_streams = max(1, n // stream_seg)
+    data, _ = _walk_buffer(n, n // n_streams, len(pattern) + n + 1)
+    before = port.dfa_walk_counts.launches
+    got = port.dfa_walk_counts(torch.from_numpy(data), port.WalkTables(p), n_streams, 0x1000)
+    assert port.dfa_walk_counts.launches == before
+    assert got.dtype == torch.int32 and got.shape == (n // 512,)
+    assert np.array_equal(got.numpy(), _reference_counts(dfa, data, n_streams, 0x1000))
+    assert int(got.sum()) > 0
+
+
+# -- the kernel's segmented walk (csrc/dfa_walk.cu), modelled on the host -------
+
+NON_SYNC = rb"Q(?:[a-z]{2})*Q"  # the parity of the letters since the last Q: never synchronises
+
+# (buffer bytes, stream_seg) of every walk case of chip_smoke.py and
+# tests/test_torch_gpu.py, a stream walked in two tiles, and 33,024-byte
+# segments
+SEGMENT_GEOMETRIES = [(2 << 20, 32768), (32 << 20, 32768), (512 << 10, 32768),
+                      (2064 << 10, 32768), (48 << 10, 768), (16 << 10, 32768),
+                      (128 << 10, 128 << 10)]
+
+
+@pytest.mark.parametrize("n,stream_seg", SEGMENT_GEOMETRIES,
+                         ids=lambda v: str(v))
+def test_walk_geometry_covers_every_window_once(n, stream_seg):
+    """walk_geometry (csrc/dfa_walk.cu make_geometry): each stream's
+    segments cover its window [s*seg, min(N, (s+1)*seg + h)) exactly once,
+    in order, each inside one 512-byte unit; the last stream stops at N;
+    the longest window has p_max segments, walked in tiles of `tile`."""
+    n_streams = max(1, n // stream_seg)
+    geo = port.walk_geometry(n, n_streams, 0x1000, 512)
+    assert geo.seg == n // n_streams and geo.h == min(0x1000, geo.seg)
+    assert geo.seg_bytes == 512 and geo.chunk == 64
+    longest = 0
+    for s in range(n_streams):
+        begin, end = geo.window(s)
+        spans = geo.segments(s)
+        assert spans[0][0] == begin and spans[-1][1] == end
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert all(lo < hi and lo // 512 == (hi - 1) // 512 for lo, hi in spans)
+        longest = max(longest, len(spans))
+    assert geo.window(n_streams - 1)[1] == n
+    assert longest == geo.p_max and geo.tile == min(geo.p_max, port.TILE_MAX)
+    assert geo.tiles == -(-geo.p_max // geo.tile)
+    assert geo.record_words == n_streams * geo.p_max * 8
+    if stream_seg == 32768 and n >= 1 << 20:
+        assert geo.p_max == (73 if n == 2064 << 10 else 72) and geo.tiles == 1
+
+
+def _walk_spans(table, accept, data, idx, state, lo, hi, base, ck, bits, chunk, rewalk):
+    """Walks segments ``idx`` side by side from ``state`` over [lo, hi),
+    as a kernel thread does: the state at the start of each chunk goes to
+    ck[segment, chunk], each position's candidate bit to bits[segment,
+    position - base]; a re-walk stops at the first chunk after its first
+    whose checkpoint equals its state. → (states, merged, bytes walked)."""
+    st = state.copy()
+    merged = np.zeros(len(idx), dtype=bool)
+    walked = np.zeros(len(idx), dtype=np.int64)
+    lo, hi, base = lo[idx], hi[idx], base[idx]
+    for off in range(bits.shape[1]):
+        pos = base + off
+        live = ~merged & (pos >= lo) & (pos < hi)
+        first = live & (pos == lo)
+        if off % chunk == 0 or first.any():
+            bound = live & ~first & (off % chunk == 0)
+            if rewalk:
+                meet = bound & (ck[idx, off // chunk] == st)
+                merged |= meet
+                live &= ~meet
+                bound &= ~meet
+            mark = first | bound
+            ck[idx[mark], off // chunk] = st[mark]
+        nxt = table[st, data[np.clip(pos, 0, len(data) - 1)]]
+        st = np.where(live, nxt, st)
+        bits[idx[live], off] = accept[nxt[live]]
+        walked += live
+    return st, merged, walked
+
+
+def _model_walk(dfa, data: np.ndarray, n_streams: int, halo: int = 0x1000):
+    """The kernel's rule in numpy: every segment but a stream's first
+    starts from its guess (the start state walked over the WARM bytes
+    before it), then rounds re-walk each segment whose entry is not its
+    predecessor's exit, with the checkpoint merge. → (candidate bitmap
+    bool [N], re-walked bytes, rounds with a re-walk)."""
+    n = len(data)
+    geo = port.walk_geometry(n, n_streams, halo, 512)
+    assert geo.tiles == 1
+    table = ref.expand_byte_table(dfa.table, dfa.class_map).astype(np.int64)
+    accept = np.asarray(dfa.accept_mask, dtype=bool)
+    start = int(dfa.start)
+    spans = [(s, p, lo, hi) for s in range(n_streams) for p, (lo, hi) in enumerate(geo.segments(s))]
+    stream, pos_in, lo, hi = (np.array(c, dtype=np.int64) for c in zip(*spans))
+    base = lo - lo % geo.seg_bytes
+    begin = stream * geo.seg
+    m = len(spans)
+    everyone = np.arange(m)
+    # the guesses: the start state over the WARM bytes before the segment
+    entry = np.full(m, start, dtype=np.int64)
+    for k in range(port.WARM):
+        pos = lo - port.WARM + k
+        live = (pos_in > 0) & (pos >= begin)
+        entry = np.where(live, table[entry, data[np.clip(pos, 0, n - 1)]], entry)
+    ck = np.zeros((m, geo.seg_bytes // geo.chunk), dtype=np.int64)
+    bits = np.zeros((m, geo.seg_bytes), dtype=bool)
+    exits, _, _ = _walk_spans(table, accept, data, everyone, entry, lo, hi, base, ck, bits,
+                              geo.chunk, False)
+    pred = np.where(pos_in > 0, everyone - 1, 0)
+    rewalked = rounds = 0
+    for _ in range(geo.tile + 1):
+        into = np.where(pos_in > 0, exits[pred], start)
+        stale = np.flatnonzero(into != entry)
+        if not len(stale):
+            break
+        rounds += 1
+        entry[stale] = into[stale]
+        st, merged, walked = _walk_spans(table, accept, data, stale, into[stale], lo, hi, base,
+                                         ck, bits, geo.chunk, True)
+        exits[stale[~merged]] = st[~merged]
+        rewalked += int(walked.sum())
+    cand = np.zeros(n, dtype=bool)
+    for i in range(m):
+        cand[base[i] : base[i] + geo.seg_bytes] |= bits[i]
+    return cand, rewalked, rounds
+
+
+def _non_sync_buffer(n: int, seg: int, seed: int) -> np.ndarray:
+    """Lowercase letters with one Q near the start of each stream, so
+    every guess after it in the stream is wrong, and a few QxyQ."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(ord("a"), ord("z") + 1, size=n, dtype=np.uint8)
+    buf[5::seg] = ord("Q")
+    for pos in (100, n // 2 + 7, n - 4):
+        buf[pos : pos + 4] = np.frombuffer(b"QxyQ", np.uint8)
+    return buf
+
+
+@pytest.mark.parametrize("pattern", [NO_PLAN, rb".{0,2}[a-z ]{11}", NON_SYNC],
+                         ids=["no-plan", "a-z11", "non-sync"])
+@pytest.mark.parametrize("n,stream_seg", [(512 << 10, 32768), (48 << 10, 768)],
+                         ids=["16x32K", "64x768"])
+def test_segmented_walk_model_is_exact(pattern, n, stream_seg):
+    """The kernel's guess / fix-up / checkpoint rule, modelled in numpy
+    over walk_geometry's segments, gives the plain walk's per-block
+    counts and packed flags exactly, with planted matches across stream
+    boundaries (guesses inside them are wrong) and with an automaton
+    that never synchronises (every guess after a stream's Q is wrong)."""
+    _, p = _dfas(pattern)
+    n_streams = n // stream_seg
+    seg = n // n_streams
+    if pattern == NON_SYNC:
+        data = _non_sync_buffer(n, seg, n + 3)
+    else:
+        data, _ = _walk_buffer(n, seg, len(pattern) + n)
+    cand, rewalked, rounds = _model_walk(p, data, n_streams)
+    counts = cand.reshape(-1, 512).sum(axis=1)
+    want = port.dfa_walk_counts_torch(torch.from_numpy(data), port.WalkTables(p), n_streams)
+    assert np.array_equal(counts, want.numpy()) and counts.sum() > 0
+    total, packed = port.pack_block_flags(torch.from_numpy(counts.astype(np.int32)))
+    want_total, want_packed = port.pack_block_flags(want)
+    assert torch.equal(total, want_total) and torch.equal(packed, want_packed)
+    if pattern == NON_SYNC:  # the fix-up walks every stream once more, a segment a round,
+        # up to the next stream's Q, where the guess meets the true state
+        assert rounds >= seg // 512 - 1 and rewalked > n // 2
+    elif pattern == NO_PLAN and seg > 2 * len(WALK_HIT):  # guesses inside planted matches
+        assert 0 < rewalked < n // 4
+
+
+def test_fixup_bytes_is_zero_on_cpu():
+    assert port.fixup_bytes(torch.device("cpu")) == 0
+    assert port.fixup_bytes(torch.device("cpu"), reset=True) == 0

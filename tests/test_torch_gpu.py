@@ -892,48 +892,98 @@ WIDE_BODY = bytes(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ01234567
 WALK_WIDE = b".{0,2}" + WIDE_BODY
 WALK_CASES = {  # name: (pattern, its planted match, buffer bytes, stream_seg)
     "no-plan-1x16K": (WALK_NO_PLAN, WALK_HIT, 16 << 10, 32768),
+    # one stream of 256 segments: walked in two tiles of 128, one after
+    # the other
+    "no-plan-1x128K": (WALK_NO_PLAN, WALK_HIT, 128 << 10, 128 << 10),
     "no-plan-16x32K": (WALK_NO_PLAN, WALK_HIT, 512 << 10, 32768),
     "no-plan-64x33024": (WALK_NO_PLAN, WALK_HIT, 2064 << 10, 32768),
     "no-plan-64x768": (WALK_NO_PLAN, WALK_HIT, 48 << 10, 768),
     "a-z11-16x32K": (rb".{0,2}[a-z ]{11}", b"hello world", 512 << 10, 32768),
     "wide-64x32K": (WALK_WIDE, WIDE_BODY, 2 << 20, 32768),
+    # the parity of the letters since a Q never synchronises: over
+    # lowercase text with one Q near each stream's start, every guess
+    # after it is wrong and the fix-up re-walks the stream
+    "non-sync-64x32K": (rb"Q(?:[a-z]{2})*Q", b"QxyQ", 2 << 20, 32768),
 }
+
+
+def _walk_case(case):
+    """(member, buffer, planted spots) of one WALK_CASES case."""
+    from grab_tpu_torch.ops import dfa_scan as ds
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    pattern, hit, n, stream_seg = WALK_CASES[case]
+    member = ds.DfaWalkMember(compile_multi([pattern]).dfa, n, BLOCK, stream_seg, 0x1000)
+    seg = n // member.n_streams
+    rng = np.random.default_rng(len(case))
+    if case.startswith("non-sync"):
+        buf = rng.integers(ord("a"), ord("z") + 1, size=n, dtype=np.uint8)
+        buf[7::seg] = ord("Q")
+    else:
+        buf = rng.integers(32, 127, size=n, dtype=np.uint8)
+    spots = [100, n - len(hit)]
+    spots += [s * seg - len(hit) // 2 for s in range(1, member.n_streams, 3)
+              if len(hit) // 2 < min(seg, 0x1000)]  # across a boundary, ends in the halo
+    for pos in spots:
+        buf[pos : pos + len(hit)] = np.frombuffer(hit, np.uint8)
+    return member, buf, spots
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(WALK_CASES))
 def test_dfa_walk_kernel_matches_plain(cuda, case):
     """One launch of csrc/dfa_walk.cu per buffer == the plain walk on the
-    card (total and packed flags), at one stream, 16 streams of 32 KiB,
-    segments of 33,024 and 768 bytes (blocks across streams), and a
-    class table in global memory; every planted match's end is flagged."""
+    card (total and packed flags), at one stream (and one walked in two
+    tiles), 16 streams of 32 KiB, segments of 33,024 and 768 bytes
+    (blocks across streams), a class table in global memory and an
+    automaton that never synchronises, twice in a row (the launch leaves
+    its scratch zero); every planted match's end is flagged."""
     from grab_tpu_torch.ops import dfa_scan as ds
-    from grab_tpu_torch.regex.compiler import compile_multi
 
-    pattern, hit, n, stream_seg = WALK_CASES[case]
-    member = ds.DfaWalkMember(compile_multi([pattern]).dfa, n, BLOCK, stream_seg, 0x1000)
+    member, buf, spots = _walk_case(case)
+    n = len(buf)
+    hit = WALK_CASES[case][1]
     if case.startswith("wide"):
         assert member.tables.class_table.nbytes > 200 << 10
-    seg = n // member.n_streams
-    rng = np.random.default_rng(len(case))
-    buf = rng.integers(32, 127, size=n, dtype=np.uint8)
-    spots = [100, n - len(hit)]
-    spots += [s * seg - len(hit) // 2 for s in range(1, member.n_streams, 3)
-              if len(hit) // 2 < min(seg, 0x1000)]  # across a boundary, ends in the halo
-    for pos in spots:
-        buf[pos : pos + len(hit)] = np.frombuffer(hit, np.uint8)
     data = torch.from_numpy(buf).to(cuda)
+    ds.fixup_bytes(data.device, reset=True)
     before = ds.dfa_walk_flags.launches
     total, packed = member.packed(data)
     assert ds.dfa_walk_flags.launches == before + 1
+    assert ds.dfa_walk_flags.shared_table == (not case.startswith("wide"))
+    rewalked = ds.fixup_bytes(data.device, reset=True)
     want = ds.dfa_walk_flags_torch(data, member.tables, member.n_streams, 0x1000, BLOCK)
     torch.cuda.synchronize()
     assert torch.equal(total, want[0]) and torch.equal(packed, want[1])
+    again = member.packed(data)
+    assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
     flags = member.flags_np(packed.cpu().numpy(), n // BLOCK)
     for pos in spots:
         if buf[pos : pos + len(hit)].tobytes() == hit:
             assert flags[(pos + len(hit) - 1) // BLOCK] == 1, (case, pos)
     assert int(total.item()) == int(flags.sum()) > 0
+    if case.startswith("non-sync"):
+        assert rewalked > n // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["no-plan-1x128K", "no-plan-16x32K", "no-plan-64x33024",
+                                  "no-plan-64x768", "non-sync-64x32K"])
+def test_dfa_walk_counts_kernel_matches_plain(cuda, case):
+    """The counts walk (csrc/dfa_walk.cu: the walk into records sized by
+    walk_geometry, which the kernel checks against its own geometry, then
+    the count kernel; two launches) == the plain walk's block counts on
+    the card, with halo bits ORed per position."""
+    from grab_tpu_torch.ops import dfa_scan as ds
+
+    member, buf, _ = _walk_case(case)
+    data = torch.from_numpy(buf).to(cuda)
+    before = ds.dfa_walk_counts.launches
+    got = ds.dfa_walk_counts(data, member.tables, member.n_streams, 0x1000, BLOCK)
+    assert ds.dfa_walk_counts.launches == before + 2
+    want = ds.dfa_walk_counts_torch(data, member.tables, member.n_streams, 0x1000, BLOCK)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want) and int(want.sum()) > 0
 
 
 @pytest.mark.gpu
