@@ -31,10 +31,12 @@ card, and fails (non-zero exit, no result line) if any phase fails:
          and lowercase letters: every segment's guess is wrong), also at
          77 and 5 word steps (not a multiple of the segment count); the
          words the kernel's fix-up re-walked, per case; then the scanner
-         on the card against the plain path: the boundary-window pass,
-         the threading fixpoint (runs across stream boundaries, one
-         longer than a stride, the non-synchronising automaton; the same
-         number of walks) and the round-cap fallback;
+         on the card against the plain path: the boundary-window pass
+         (two walk launches), the threading fixpoint (one launch of the
+         fixpoint kernel per run_t, whatever MAX_ROUNDS is: runs across
+         stream boundaries, one longer than a stride, the grid capped at
+         100 and 1 blocks, the non-synchronising automaton; the same
+         number of walks) and the round-cap fallback at 2 and 1 walks;
        - B3 alphabet runs: coarse runs of 1, 2, 4 and 8 words and fine
          runs of 1, 2 and 4 bytes, ranges with byte 0 (the pad rows are
          members) and with bytes >= 0x80, runs planted across row,
@@ -118,16 +120,19 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      ``-n 1`` over the tree; B1's flags (32 MiB) and B2's (2 MiB) cover
      every block of an exact match from the port's ``golden``; and
      ``make_sharded_scan`` on ``cuda:0,cuda:0`` at 32 MiB per shard (a
-     literal and a literal-free pattern, the latter through the walk's
+     literal pattern through the literal kernel, csrc/literal_scan.cu,
+     one launch per shard, and a literal-free one through the walk's
      counts entry in two launches per shard) equals the same call on
-     the CPU; then the bench, ``python -m grab_tpu_torch.bench`` as a
+     the CPU, and the literal kernel alone equals its plain version on
+     the card at 1, 16 and 300 literals; then the bench, ``python -m grab_tpu_torch.bench`` as a
      process at its full sizes (1 GiB headline, 256 MiB and 1 GiB
      stacks): exit 0, the headline one B1 launch within 1.05 of the run's
      measured roofline, each secondary metric once, finite, not suspect,
-     every kernel but B7 launched; and the dry run
-     (``grab_tpu_torch.dryrun``): ``entry()`` gives (1, 2) on the card,
-     ``dryrun_multichip`` passes on ``cuda:0,cuda:0`` (and over every
-     card when there are two or more);
+     every kernel but B7, W1 and W2 launched; and the dry run
+     (``grab_tpu_torch.dryrun``): ``entry()`` gives (1, 2) on the card
+     in one fixpoint launch, ``dryrun_multichip`` passes on
+     ``cuda:0,cuda:0`` (and over every card when there are two or
+     more), its byte step one literal-kernel launch per shard;
   5. times from CUDA events after warm-up: each kernel, its plain
      version, a device-to-device copy of the same bytes and the kernel's
      bound (the walk's also beside its longest chain of dependent
@@ -898,24 +903,39 @@ def plant_run(buf, pos: int, span: int):
 def phase_stride_scanner(torch, np, rng, rng5):
     """StrideDfaScanner on the card against the plain path (the same
     scanner on the CPU, whose fixpoint is stride_fixpoint_torch): window
-    pass, the threading fixpoint (the kernel's later walks re-walk only
-    the streams whose entry changed) for (bm, walks, converged), round
-    cap; with the words the kernel's fix-up re-walked."""
+    pass (two walk launches), the threading fixpoint (ONE launch of the
+    fixpoint kernel whatever MAX_ROUNDS is; its later walks re-walk only
+    the streams whose entry changed) for (bm, walks, converged), also
+    with the grid capped below 256 blocks (each block then walks several
+    stream tiles), the never-synchronising automaton, the round cap;
+    with the words the kernel's fix-up re-walked, and each fixpoint
+    case's time beside its plain version on the card and its bound.
+    → (results by case, the fixpoint cases' rows)."""
     from grab_tpu_torch.ops import stridedfa as sd
     from grab_tpu_torch.regex.compiler import compile_multi
 
     dev = torch.device("cuda")
-    out = {}
+    out, rows = {}, []
 
-    def compare(label, pat, buf, rounds=None):
+    def compare(label, pat, buf, rounds=None, plain_on_card=False, max_blocks=0):
         cp = compile_multi([pat])
         sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, buf.size)
         w = sc.prep_t(buf)
         wd = torch.from_numpy(w).to(dev)
+
+        def run():  # run_t, or its fixpoint with the grid capped at max_blocks
+            if max_blocks:
+                return sd.stride_dfa_fixpoint(wd, sc.tables, max_blocks=max_blocks)
+            return sc.run_t(wd)
+
         sd.fixup_words(dev, reset=True)
-        bm, n, conv = sc.run_t(wd)
+        fix0, walk0 = sd.stride_dfa_fixpoint.launches, sd.stride_dfa_scan.launches
+        bm, n, conv = run()
+        launched = (sd.stride_dfa_fixpoint.launches - fix0, sd.stride_dfa_scan.launches - walk0)
         torch.cuda.synchronize()
         rewalked = sd.fixup_words(dev, reset=True)
+        check(launched == ((0, 2) if sc.window_mode else (1, 0)),
+              f"{label}: (fixpoint, walk) launches {launched}")
         bm_p, n_p, conv_p = sc.run_t(torch.from_numpy(w))
         check(torch.equal(bm.cpu(), bm_p), f"{label}: bitmap on the card != plain path")
         check((int(n), bool(conv)) == (int(n_p), bool(conv_p)),
@@ -925,13 +945,33 @@ def phase_stride_scanner(torch, np, rng, rng5):
         nb = buf.size // 512
         flags = sc.flags_np(bm.cpu().numpy(), nb)
         check(np.array_equal(flags, sc.flags_np(bm_p.numpy(), nb)), f"{label}: flags differ")
-        ms = time_cuda(torch, lambda i: sc.run_t(wd), 10)
+        grid = None if sc.window_mode else sd.stride_dfa_fixpoint.grid
+        ms = time_cuda(torch, lambda i: run(), 10)
         out[label] = {"walks": int(n), "converged": bool(conv), "ms": ms,
                       "flagged_blocks": int(flags.sum()), "window_mode": sc.window_mode,
-                      "rewalked_words": rewalked}
+                      "rewalked_words": rewalked, "launches": launched, "grid": grid,
+                      "cap": max_blocks}
+        if not sc.window_mode:
+            # the function reads the buffer once and writes the bitmap
+            # once, however many walks it takes
+            bytes_ms = (wd.numel() + bm.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+            plain_ms = None
+            if plain_on_card:
+                plain_ms = time_cuda(
+                    torch, lambda i: sd.stride_fixpoint_torch(wd, sc.tables, sd.MAX_ROUNDS), 1,
+                    warmup=0)
+            copy = torch.empty_like(wd)
+            rows.append({"case": label, "walks": int(n), "converged": bool(conv), "grid": grid,
+                         "rewalked_words": rewalked, "max_abs_err": 0, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+                         "copy_ms": time_cuda(torch, lambda i: copy.copy_(wd), 10)})
+            del copy
         log(f"scanner on the card == plain path: {label} (walks {int(n)}, converged "
             f"{bool(conv)}, {int(flags.sum())} flagged blocks, {rewalked} words re-walked "
-            f"by the fix-up, {ms:.4f} ms per {buf.size >> 20} MiB)")
+            f"by the fix-up, (fixpoint, walk) launches {launched}, grid {grid}, {ms:.4f} ms "
+            f"per {buf.size >> 20} MiB"
+            + (f", plain {rows[-1]['plain_ms']:.1f} ms" if rows and rows[-1]["case"] == label
+               and rows[-1]["plain_ms"] else "") + ")")
         return flags
 
     text = rng.integers(33, 127, size=BUF, dtype=np.uint8)
@@ -947,7 +987,7 @@ def phase_stride_scanner(torch, np, rng, rng5):
         plant_run(punct, s * 2048 - 9, 30)
     plant_run(punct, 5 * 2048 + 100, 6000)  # longer than a whole stride
     compare("fixpoint, .{0,2}(?:[0-9a-zA-Z]{4})+", rb".{0,2}(?:[0-9a-zA-Z]{4})+", punct,
-            rounds=lambda n, c: c and n >= 2)
+            rounds=lambda n, c: c and n >= 2, plain_on_card=True)
     # a[0-9]*b: the in-digits state crosses one stream per walk, so a
     # digit run over 3 strides needs 4+ walks
     digits = np.full(BUF, ord(" "), dtype=np.uint8)
@@ -955,22 +995,31 @@ def phase_stride_scanner(torch, np, rng, rng5):
         digits[pos] = ord("a")
         digits[pos + 1 : pos + span] = ord("7")
         digits[pos + span] = ord("b")
-    compare("fixpoint, a[0-9]*b", rb"a[0-9]*b", digits, rounds=lambda n, c: c and n >= 4)
+    compare("fixpoint, a[0-9]*b", rb"a[0-9]*b", digits, rounds=lambda n, c: c and n >= 4,
+            plain_on_card=True)
+    check(out["fixpoint, a[0-9]*b"]["grid"] >= 132,
+          f"the fixpoint's grid holds {out['fixpoint, a[0-9]*b']['grid']} blocks")
+    # fewer blocks than stream tiles: each block walks tiles b, b + grid, ...
+    for cap in (100, 1):
+        label = f"fixpoint, a[0-9]*b, grid cap {cap}"
+        compare(label, rb"a[0-9]*b", digits, rounds=lambda n, c: c and n >= 4, max_blocks=cap)
+        check(out[label]["grid"] == cap, f"{label}: grid {out[label]['grid']}")
     # every segment's guess wrong, in the first walk and the later ones
     # (8 MiB, a stride of 512 B: the plain fixpoint runs on the host)
     qbuf = nosync_words(np, rng5, (8 << 20) // sd.N_STREAMS // 4)
     qlin = np.ascontiguousarray(qbuf.reshape(-1, sd.N_STREAMS).T).reshape(-1).view(np.uint8)
     compare("fixpoint, " + NOSYNC[0].decode(), NOSYNC[0], qlin, rounds=lambda n, c: c)
     keep = sd.MAX_ROUNDS
-    sd.MAX_ROUNDS = 2
     try:
-        compare("round cap 2, fallback", rb"a[0-9]*b", digits,
-                rounds=lambda n, c: n == 2 and not c)
+        for cap in (2, 1):
+            sd.MAX_ROUNDS = cap
+            compare(f"round cap {cap}, fallback", rb"a[0-9]*b", digits,
+                    rounds=lambda n, c, cap=cap: n == cap and not c)
+            check(out[f"round cap {cap}, fallback"]["flagged_blocks"] == BUF // 512,
+                  f"round-cap {cap} fallback did not flag every block")
     finally:
         sd.MAX_ROUNDS = keep
-    check(out["round cap 2, fallback"]["flagged_blocks"] == BUF // 512,
-          "round-cap fallback did not flag every block")
-    return out
+    return out, rows
 
 
 # -- B3, B5, B6 and the last-resort walk ---------------------------------------
@@ -1410,7 +1459,7 @@ def phase_transpose_paths(torch, np, rng):
     missed = [p_ for p_ in spots if not flags[p_ // 512] and not flags[(p_ + 6) // 512]]
     check(not missed, f"_StrideSeqMember.packed missed planted hits at {missed[:5]}")
     launches = read_counters()
-    check(launches["transpose"] == 3 and launches["stride"] > 0,
+    check(launches["transpose"] == 3 and launches["stride"] > 0 and launches["fixpoint"] == 2,
           f"the linear-words entries did not run the transpose kernel: {launches}")
     out["member"] = {"flagged_blocks": int(flags.sum()), "planted": len(spots)}
     log(f"_StrideSeqMember.packed(words2d) == packed_t: {int(flags.sum())} flagged blocks for "
@@ -1730,7 +1779,7 @@ ROUTE_COMMANDS = [
     route("gdfa-window", ["-r"], ".{0,2}[a-z ]{11}", "mtree", "gdfa", ["StrideDfaScanner"],
           ["stride"]),
     route("gdfa-thread", ["-E", "-r"], ".{0,2}(?:[0-9a-zA-Z]{4})+", "gtree", "gdfa",
-          ["StrideDfaScanner"], ["stride"]),
+          ["StrideDfaScanner"], ["fixpoint"]),
     route("alpha-coarse", ["-r", "-O"], ".{0,2}[0-9]{11}", "mtree", "alpha", ["AlphaRunScanner"],
           ["alpharun"]),
     # backreferences: no automaton, the class run is the only device form
@@ -1842,7 +1891,7 @@ GROUP_LITERAL = "QWERTY"  # planted in mtree (SEQ_PLANTS)
 CLEAN_MISS = "z\x01Q\x02x\x03m\x04i\x05s\x06s"
 GROUP_ROUTES = [  # (route key, tree, scan_buf_size of the -n 2 run, counters)
     ("seq-stride", "mtree", 4 << 20, ["stride"]),
-    ("gdfa-thread", "ntree", 4 << 20, ["stride"]),
+    ("gdfa-thread", "ntree", 4 << 20, ["fixpoint"]),
     ("alpha-coarse", "mtree", 4 << 20, ["alpharun"]),
     ("batchseq-stride", "stree", 2 << 20, ["fused", "stride"]),
 ]
@@ -2271,14 +2320,58 @@ def phase_golden(torch, np, rng):
     return res
 
 
-def phase_byte_scan(torch, np, rng):
+# the least int32 operations a linear compare per key needs, per
+# position and key: two LOP3s ((window ^ value) & mask, one per half),
+# the OR of the halves, one unsigned-min accumulate (the test for zero
+# made once after the key loop). A scan that buckets the keys by their
+# first bytes needs fewer than K compares a position: this is the bound
+# of the linear compare, not of the function.
+W2_OPS_PER_KEY = 4
+
+
+def w2_literal_sets(np, rng):
+    """The literal kernel's cases: K = 1, 16 (1-, 3-, 8- and 11-byte
+    literals, a zero-length one and NUL-ending ones) and 300."""
+    def lits(n, lo, hi):
+        return [bytes(rng.integers(33, 127, size=int(rng.integers(lo, hi + 1)),
+                                   dtype=np.uint8)) for _ in range(n)]
+
+    k16 = [b"q", b"fox", b"abcdefgh", b"needle-in-a", b"", b"ab\x00", b"xyz\x00\x00",
+           b"\x00\x00\x00"] + lits(8, 3, 11)
+    return {"K1": [b"fooxyzzbar"], "K16": k16, "K300": lits(300, 3, 11)}
+
+
+def w2_buffer(np, rng, lits):
+    """32 MiB of printable text with NUL bytes sprinkled, every literal
+    planted at random spots and across 512-byte block edges, and the
+    shard's last bytes the head of a NUL-ending or short literal (a hit
+    against the zero tail)."""
+    buf = rng.integers(32, 127, size=BUF, dtype=np.uint8)
+    buf[rng.integers(0, BUF, size=2000)] = 0
+    for i, lit in enumerate(lits * max(1, 600 // len(lits))):
+        if lit:
+            pos = int(rng.integers(0, BUF - 16)) if i % 2 else 512 * (i + 1) - len(lit) // 2
+            buf[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
+    tail = next((l.rstrip(b"\x00") for l in lits if l.endswith(b"\x00") and l.strip(b"\x00")),
+                lits[0])
+    buf[BUF - len(tail) :] = np.frombuffer(tail, np.uint8)
+    return buf
+
+
+def phase_byte_scan(torch, np, rng, rate):
     """make_sharded_scan (the byte-level step: literal scan or DFA walk,
     block counts, their sum) on two lanes of the card at 32 MiB per
-    shard equals the same call on two CPU shards, bit for bit; the
-    pattern without a literal goes through the walk's counts entry
-    (csrc/dfa_walk.cu) in at most two launches per shard, the literal
-    one launches none. → (results, the counts entry's launches)."""
+    shard equals the same call on two CPU shards, bit for bit, with the
+    counters set to 0 just before: the literal pattern launches the
+    literal kernel (csrc/literal_scan.cu) once per shard and no walk,
+    the pattern without a literal the walk's counts entry
+    (csrc/dfa_walk.cu) in two launches per shard and no literal kernel.
+    Then the literal kernel alone against its plain version on the
+    card, bit for bit, at K = 1, 16 and 300 (w2_literal_sets), and its
+    time. → (results, the counts entry's launches, the literal kernel's
+    launches, its cases)."""
     from grab_tpu_torch.ops import dfa_scan as ds
+    from grab_tpu_torch.ops import literal_scan as ls
     from grab_tpu_torch.parallel.scan_step import make_sharded_scan
     from grab_tpu_torch.regex.compiler import compile_pattern
 
@@ -2288,19 +2381,23 @@ def phase_byte_scan(torch, np, rng):
     for p in rng.integers(0, 2 * BUF - 16, size=500).tolist() + [BUF - 4, 2 * BUF - 10]:
         data[p : p + 10] = np.frombuffer(b"fooxyzzbar", np.uint8)
     host = torch.from_numpy(data)
-    launches = 0
+    launches = lit_launches = 0
     for pattern in (rb"fooxyzzbar", rb"[f-g][o-p]+[x-z]{4}[a-d]+r"):
         cp = compile_pattern(pattern)
         ds.dfa_walk_counts.launches = 0
+        ls.literal_block_counts.launches = 0
         t0 = time.perf_counter()
         counts, total = make_sharded_scan(cp, ["cuda:0", "cuda:0"], BUF)(host.to("cuda:0"))
         counts = [c.cpu() for c in counts]
         total = int(total)
         card_s = time.perf_counter() - t0
         walk_launches = ds.dfa_walk_counts.launches
+        w2 = ls.literal_block_counts.launches
         launches += walk_launches
-        check(walk_launches == (0 if cp.literals else 2 * 2),
-              f"byte scan {pattern!r}: {walk_launches} walk launches over 2 shards")
+        lit_launches += w2
+        check((walk_launches, w2) == ((0, 2) if cp.literals else (2 * 2, 0)),
+              f"byte scan {pattern!r}: {walk_launches} walk and {w2} literal kernel launches "
+              f"over 2 shards")
         t0 = time.perf_counter()
         want, want_total = make_sharded_scan(cp, ["cpu", "cpu"], BUF)(host)
         cpu_s = time.perf_counter() - t0
@@ -2309,11 +2406,42 @@ def phase_byte_scan(torch, np, rng):
               and total >= 500, f"byte scan {pattern!r}: card counts != CPU counts "
               f"({total} vs {int(want_total)})")
         res.append({"pattern": pattern.decode(), "literal": bool(cp.literals), "total": total,
-                    "card_s": card_s, "cpu_s": cpu_s, "walk_launches": walk_launches})
+                    "card_s": card_s, "cpu_s": cpu_s, "walk_launches": walk_launches,
+                    "literal_launches": w2})
         log(f"make_sharded_scan on cuda:0,cuda:0 == cpu,cpu: {pattern.decode()} "
             f"({'literal' if cp.literals else 'DFA walk'}, {total} candidates, {card_s:.3f} s "
-            f"on the card with {walk_launches} walk kernel launches, {cpu_s:.2f} s on the CPU)")
-    return res, launches
+            f"on the card with {walk_launches} walk and {w2} literal kernel launches, "
+            f"{cpu_s:.2f} s on the CPU)")
+
+    dev = torch.device("cuda")
+    cases = []
+    for label, lits in w2_literal_sets(np, rng).items():
+        keys = ls.LiteralKeys(lits)
+        buf = torch.from_numpy(w2_buffer(np, rng, lits)).to(dev)
+        got = ls.literal_block_counts(buf, keys, 512)
+        want = ls.literal_block_counts_torch(buf, keys, 512)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"literal kernel {label}: counts != plain on the card")
+        check(int(got[-1]) > 0, f"literal kernel {label}: no hit in the shard's last block")
+        ring = [buf] + [buf.clone() for _ in range(3)]
+        ms = time_cuda(torch, lambda i: ls.literal_block_counts(ring[i % 4], keys, 512), 20)
+        plain_ms = time_cuda(torch, lambda i: ls.literal_block_counts_torch(ring[i % 4], keys,
+                                                                             512), 2, warmup=1)
+        dst = torch.empty_like(buf)
+        copy_ms = time_cuda(torch, lambda i: dst.copy_(ring[i % 4]), 20)
+        bytes_ms = (BUF + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = BUF * len(lits) * W2_OPS_PER_KEY / rate * 1e3
+        cases.append({"case": label, "k": len(lits), "candidates": int(got.sum()),
+                      "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "copy_ms": copy_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                      "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "library_ms": None})
+        log(f"literal kernel == plain on the card: {label} ({int(got.sum())} candidates): "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, d2d copy {copy_ms:.4f} ms, bound "
+            f"{max(bytes_ms, ops_ms):.4f} ms ({cases[-1]['bound_by']})")
+        del ring, dst
+    return res, launches, lit_launches, cases
 
 
 BENCH_GROUP = 32 * 512  # bytes of one bitmap group (32 rows of 128 words)
@@ -2482,7 +2610,8 @@ def phase_bench(torch, here):
     0; stdout's last line the headline (one B1 launch over 1 GiB, at
     most BENCH_MAX_ROOFLINE of this run's measured roofline); every
     secondary metric once on stderr, finite, above 0, not suspect; every
-    kernel but B7 launched. → the values, launches and wall."""
+    kernel but B7, W1 and W2 launched. → the values, launches and
+    wall."""
     import math
 
     from grab_tpu_torch.bench import METRIC, SECONDARY_METRICS
@@ -2517,7 +2646,8 @@ def phase_bench(torch, here):
               and l["value"] > 0, f"bench: {l}")
         l["share_of_roofline"] = l["value"] / roof
     check(launches is not None
-          and all(launches.get(k, 0) > 0 for k in counters() if k not in ("transpose", "walk")),
+          and all(launches.get(k, 0) > 0 for k in counters()
+                  if k not in ("transpose", "walk", "literal")),
           f"bench: launches {launches}")
     log(f"bench in {wall:.1f}s: {head['value'] / 1e9:.1f} GB/s, "
         f"{head['vs_measured_roofline']} of the measured {roof / 1e9:.1f} GB/s; "
@@ -2537,7 +2667,8 @@ def phase_dryrun(torch):
     got = tuple(int(x) for x in fn(*args))
     entry_launches = read_counters()
     check(got == (1, 2), f"dryrun entry: {got} != (1, 2)")
-    check(entry_launches["stride"] > 0, f"dryrun entry: launches {entry_launches}")
+    check(entry_launches["fixpoint"] == 1 and entry_launches["stride"] == 0,
+          f"dryrun entry: not one fixpoint launch: {entry_launches}")
     runs = []
     specs = [(2, TWO_LANES)]
     if torch.cuda.device_count() >= 2:
@@ -2549,7 +2680,8 @@ def phase_dryrun(torch):
         res = dryrun.dryrun_multichip(n, spec, out=buf)
         wall = time.perf_counter() - t0
         launches = read_counters()
-        check(launches["corewords"] > 0, f"dryrun {n} on {spec}: launches {launches}")
+        check(launches["corewords"] > 0 and launches["literal"] == n,
+              f"dryrun {n} on {spec}: launches {launches}")
         ratio = json.loads(buf.getvalue().splitlines()[0])
         res["engine"].pop("output")
         runs.append({"n": n, "devices": spec, "ratio": ratio["value"], "parts": res,
@@ -2597,7 +2729,7 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build_cuda(
         ["corewords", "classseq", "stridedfa", "alpharun", "xorfilter", "fused",
-         "transpose", "bloom", "dfa_walk"])
+         "transpose", "bloom", "dfa_walk", "literal_scan"])
     t_cuda = time.time() - t0
     t0 = time.time()
     native_ok = native.available()
@@ -2632,7 +2764,7 @@ def main() -> int:
             kres = phase_kernels(torch, np, cw, rng, rate)
             cres = phase_classseq(torch, np, rng, rate)
             sres = phase_stride(torch, np, rng, sms, sm_clock, rng5)
-            scres = phase_stride_scanner(torch, np, rng, rng5)
+            scres, fixres = phase_stride_scanner(torch, np, rng, rng5)
             ares = phase_alpharun(torch, np, rng, rate)
             xres = phase_xor(torch, np, rng, rate)
             fres = phase_fused(torch, np, rng, rate, rng5)
@@ -2653,7 +2785,7 @@ def main() -> int:
                 phase_e2e(torch, np, tree, ["-r", "\t[0-9]+\t", tree], "classseq", False),
                 phase_e2e(torch, np, tree, ["-r", ".{0,2}[a-z ]{11}", tree], "stride", False),
                 phase_e2e(torch, np, gbulk, ["-E", "-r", ".{0,2}(?:[0-9a-zA-Z]{4})+", gbulk],
-                          "stride", False),
+                          "fixpoint", False),
                 phase_e2e(torch, np, tree, ["-r", ".{0,2}[0-9]{11}", tree], "alpharun", False),
                 # the last-resort walk: an automaton without a stride plan
                 phase_e2e(torch, np, tree, ["-r", NO_PLAN.decode(), tree], "walk", False),
@@ -2675,7 +2807,8 @@ def main() -> int:
             mres = phase_multihost(torch, np, here, tree, trees, tmp)
             spres = phase_spot(torch, np, here, tree)
             gdres = phase_golden(torch, np, rng8)
-            byres, walk_count_launches = phase_byte_scan(torch, np, rng8)
+            byres, walk_count_launches, lit_launches, litres = phase_byte_scan(
+                torch, np, rng8, rate)
             bsres = phase_bench_shapes(torch, np)
             torch.cuda.empty_cache()  # the bench process takes ~6 GiB of the card
             bnres = phase_bench(torch, here)
@@ -2726,6 +2859,17 @@ def main() -> int:
         "bloom": row("bloom_word_bitmap", "grab_tpu_torch/csrc/bloom.cu",
             "grab_tpu/ops/pallas_bloom.py:129", b_launches, bres, bres[0],
             ("set", "levels", "keys") + common),
+        # B2's threading fixpoint: its own kernel in the same source, one
+        # launch per run_t of an unbounded pattern
+        "fixpoint": row("stride_dfa_fixpoint", "grab_tpu_torch/csrc/stridedfa.cu",
+            "grab_tpu/ops/pallas_stridedfa.py:775",
+            sum(r["launches"]["fixpoint"] for r in route_runs), fixres, fixres[0],
+            ("case", "walks", "converged", "grid", "rewalked_words") + common),
+        # the sharded literal byte step: launched by make_sharded_scan in
+        # phase_byte_scan (and the dry run), not by a CLI route
+        "literal": row("literal_block_counts", "grab_tpu_torch/csrc/literal_scan.cu",
+            "grab_tpu/ops/literal_scan.py:40", lit_launches, litres, litres[0],
+            ("case", "k", "candidates") + common + ("ops_bound_ms",)),
         "walk": row("dfa_scan_bitmap", "grab_tpu_torch/csrc/dfa_walk.cu",
             "grab_tpu/ops/dfa_scan.py:46",
             sum(r["launches"]["walk"] for r in route_runs), wres, wres[1],
@@ -2758,7 +2902,8 @@ def main() -> int:
         "sm_count": sms, "max_sm_clock_mhz": sm_clock,
         "build_s": {"nvcc": t_cuda, "ingest": t_ingest}, "native_ingest": native_ok,
         "buf_size": BUF, "kernel_sets": kres, "classseq_sets": cres, "stride_plans": sres,
-        "stride_scanner": scres, "alpharun_sets": ares, "xor_sets": xres, "fused_sets": fres,
+        "stride_scanner": scres, "stride_fixpoint": fixres, "literal_scan": litres,
+        "alpharun_sets": ares, "xor_sets": xres, "fused_sets": fres,
         "dfa_walk": wres, "dfa_walk_counts": wcres, "transpose_shapes": tres,
         "transpose_paths": tpaths,
         "bloom_sets": bres, "bloom_path": bpath, "groups": gres, "server": vres,

@@ -89,23 +89,29 @@ WALKS = (  # (metric, pattern, the stride plan it must take) over the 1 GiB stac
 
 
 def kernel_wrappers() -> dict:
-    """The port's nine kernel wrappers, by the short name their launch
-    counts go under (``launch_counters``, ``chip_smoke.py``). The bench
-    times eight: the last-resort walk (``walk``) has no metric."""
+    """The port's kernel wrappers, by the short name their launch counts
+    go under (``launch_counters``, ``chip_smoke.py``): the nine kernels
+    with a word or walk entry, B2's threading fixpoint (``fixpoint``, a
+    kernel of its own) and the sharded literal byte step (``literal``).
+    The bench launches all but the last-resort walk (``walk``), B7 and
+    the literal byte step, which have no metric."""
     from grab_tpu_torch.ops.alpharun import alpharun_flags
     from grab_tpu_torch.ops.bloom import bloom_word_flags
     from grab_tpu_torch.ops.classseq import classseq_flags
     from grab_tpu_torch.ops.corewords import core_word_flags
     from grab_tpu_torch.ops.dfa_scan import dfa_walk_flags
     from grab_tpu_torch.ops.fused import fused_word_flags
-    from grab_tpu_torch.ops.stridedfa import stride_dfa_scan, stride_transpose
+    from grab_tpu_torch.ops.literal_scan import literal_block_counts
+    from grab_tpu_torch.ops.stridedfa import (
+        stride_dfa_fixpoint, stride_dfa_scan, stride_transpose)
     from grab_tpu_torch.ops.xorfilter import xor_word_flags
 
     return {"corewords": core_word_flags, "classseq": classseq_flags,
-            "stride": stride_dfa_scan, "alpharun": alpharun_flags,
-            "xor": xor_word_flags, "fused": fused_word_flags,
-            "transpose": stride_transpose, "bloom": bloom_word_flags,
-            "walk": dfa_walk_flags}
+            "stride": stride_dfa_scan, "fixpoint": stride_dfa_fixpoint,
+            "alpharun": alpharun_flags, "xor": xor_word_flags,
+            "fused": fused_word_flags, "transpose": stride_transpose,
+            "bloom": bloom_word_flags, "walk": dfa_walk_flags,
+            "literal": literal_block_counts}
 
 
 def launch_counters() -> dict:

@@ -1,8 +1,9 @@
 // Strided DFA walk for Hopper (sm_90a), with the threading fixpoint.
 //
 // Replaces the JAX package's TPU kernel grab_tpu/ops/pallas_stridedfa.py
-// stride_dfa_scan (Pallas body _build_kernel), and queues the
-// jax.lax.while_loop of StrideDfaScanner.run_t on the device.
+// stride_dfa_scan (Pallas body _build_kernel), and runs the
+// jax.lax.while_loop of StrideDfaScanner.run_t (the threading fixpoint)
+// on the device as one launch.
 //
 // What it computes. The buffer is 16384 streams in stream-major layout:
 // word g of stream s = r*128 + c at row g*128 + r, lane c, int32
@@ -64,26 +65,41 @@
 //     do not depend on the state, so those of word j+1 are made before
 //     word j's chain.
 //
-// The threading fixpoint (gt_stride_fixpoint) queues max_rounds walks
-// without a host sync: after each walk a one-block kernel threads the
-// exits into the next entries (stream s gets stream s-1's exit, stream 0
-// the start state), counts the walk, and sets a device "converged" word
-// when the entries did not change; every later walk and threading kernel
-// returns at once when that word is set. A last kernel fills the bitmap
-// with -1 if the entries still changed after the last walk, the
-// reference's fallback. The first walk stores every checkpoint in a
-// device scratch (ckpt_words(S_w) int32); a later walk re-walks only
-// streams whose entry changed, from segment 0 through the same fix-up
-// against the stored checkpoints, and leaves every other bitmap row and
-// exit as they are. So the walks run, the final bitmap and the fallback
-// equal the reference's.
+// The threading fixpoint (gt_stride_fixpoint) is the reference's
+// while_loop (StrideDfaScanner.run_t) as ONE cooperative launch: a
+// persistent grid of at most 256 walk blocks, as many as can be resident
+// together (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs; block j
+// walks the 64-stream tiles j, j + grid, ...), that loops on the card:
+//   1. walk (every stream from the start state in round 0; later rounds
+//      re-walk only the streams whose entry changed);
+//   2. grid sync;
+//   3. thread the exits into the entries (stream s gets stream s-1's
+//      exit, stream 0 the start state), grid-stride over the streams;
+//      a block that changed an entry sets the round's "changed" word;
+//   4. grid sync;
+//   5. stop when nothing changed (converged) or after max_rounds walks.
+// Then the bitmap is filled with -1 if the entries still changed, the
+// reference's fallback. So a buffer that converges in n walks costs n
+// walks and one launch, with no stream operation before it: the two
+// "changed" words (one per round parity) are zeroed by the kernel itself
+// before its first grid sync, and the one a round will use is zeroed two
+// syncs ahead of it, after every block has read it. The first walk
+// stores every checkpoint in a device scratch (ckpt_words(S_w) int32); a
+// later walk re-walks only streams whose entry changed, from segment 0
+// through the same fix-up against the stored checkpoints, and leaves
+// every other bitmap row and exit as they are. So the walks run, the
+// final bitmap and the fallback equal the reference's. Words that one
+// block writes and another reads after a grid sync (entries, exits, the
+// changed words) are read past the L1 (__ldcg / volatile).
 //
 // The kernels allocate nothing and run on the caller's stream; the C
 // entry points return the first launch error (cudaGetLastError()).
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -140,12 +156,10 @@ struct WalkArgs {
   int mk;
   int acc_bit;
   int start;  // the automaton's start state: where a guess's warm-up begins
-  const int32_t* entries;
+  const int32_t* entries;  // a single walk's entries
   int32_t* bm;
   int32_t* exits;
   int32_t* ckpt;        // checkpoint scratch (nullable: shared memory)
-  int incremental;      // a fixpoint walk after the first: ckpt holds the last walk
-  const int32_t* done;  // skip the walk when *done != 0 (nullable)
   unsigned long long* rewalked;  // += words re-walked by the fix-up (nullable)
 };
 
@@ -216,10 +230,24 @@ __device__ __forceinline__ void load_chunk(const uint32_t* col, int g0, int end,
   for (int j = 0; j < kCk; ++j) w[j] = g0 + j < end ? __ldg(col + (g0 + j) * kStep) : 0u;
 }
 
+// The tables in shared memory (the flat table, then the byte index, one
+// copy per warp lane: lane l reads bank l whatever the byte); the caller
+// syncs the block before the first lookup.
+__device__ __forceinline__ Tables load_tables(const WalkArgs& a, int32_t* s_tab) {
+  const int t = threadIdx.x;
+  for (int i = t; i < a.n_flat; i += kThreads) s_tab[i] = a.flat[i];
+  int32_t* s_idx = s_tab + kMaxFlat;
+  for (int i = t; i < 256 * 32; i += kThreads) s_idx[i] = a.idx[i / 32];
+  return Tables{s_tab, s_idx, t % 32, a.m, a.mk, a.acc_bit, a.acc_bit - 1};
+}
+
+// One walk of the 64 streams of tile blk (8 rows x 8 lanes) by the whole
+// block, from entries (nullable: every stream enters at start); block-
+// uniform control flow, so it may return early. incremental: a fixpoint
+// walk after the first, whose ckpt holds the last walk.
 template <int K>
-__global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
-  if (a.done != nullptr && *a.done) return;
-  extern __shared__ int32_t s_tab[];
+__device__ __forceinline__ void walk_block(const WalkArgs& a, const Tables& tab, int blk,
+                                           const int32_t* entries, bool incremental) {
   __shared__ int32_t s_ck[kMaxCk][kThreads];       // checkpoints of a single walk
   __shared__ int32_t s_exit[kSegs][kBlockStreams];  // each segment's exit
   __shared__ unsigned long long s_hm[kSegs][kBlockStreams];  // each segment's hits
@@ -230,8 +258,8 @@ __global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
   const int p = t / kBlockStreams;   // segment
   const int c_l = sl % kBlockLanes;
   const int r_l = sl / kBlockLanes;
-  const int rg = blockIdx.x / (kLanes / kBlockLanes);  // 8-row group
-  const int cg = blockIdx.x % (kLanes / kBlockLanes);  // 8-lane group
+  const int rg = blk / (kLanes / kBlockLanes);  // 8-row group
+  const int cg = blk % (kLanes / kBlockLanes);  // 8-lane group
   const int r = rg * kBlockRows + r_l;
   const int c = cg * kBlockLanes + c_l;
   const int s = r * kLanes + c;
@@ -243,23 +271,18 @@ __global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
     return a.ckpt + (static_cast<size_t>(tile) * kSegs + p) * geo.n_ck * kStreams + s;
   };
   const int ck_step = global_ck ? kStreams : kThreads;
+  // segment 0's true entry (read by p == 0); another block may have
+  // written it before the last grid sync
+  int tile_in = entries != nullptr ? __ldcg(entries + s) : a.start;
 
-  if (a.incremental) {
+  if (incremental) {
     // a stream whose entry did not change keeps its rows and exit: a
     // block none of whose streams changed has nothing to do
-    const bool moved = p == 0 && a.entries[s] != a.ckpt[s];
+    const bool moved = p == 0 && tile_in != a.ckpt[s];
     if (!__syncthreads_or(moved)) return;
   }
-  for (int i = t; i < a.n_flat; i += kThreads) s_tab[i] = a.flat[i];
-  int32_t* s_idx = s_tab + kMaxFlat;
-  // one copy of the index per warp lane: lane l reads bank l whatever
-  // the byte
-  for (int i = t; i < 256 * 32; i += kThreads) s_idx[i] = a.idx[i / 32];
-  const Tables tab{s_tab, s_idx, t % 32, a.m, a.mk, a.acc_bit, a.acc_bit - 1};
   const uint32_t* col = a.words + static_cast<size_t>(r) * kLanes + c;
-  int tile_in = a.entries[s];  // segment 0's true entry (read by p == 0)
   unsigned long long rewalked = 0;
-  __syncthreads();
 
   for (int tile = 0; tile < geo.tiles; ++tile) {
     const int t0 = tile * kSegs * geo.seg;
@@ -271,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
     int entry = 0;                   // the entry the segment's hits are walked from
     unsigned long long hm = 0;       // bit j: word lo + j hit
     int upto = 0;                    // words [lo, lo + upto) walked in this launch
-    if (a.incremental) {
+    if (incremental) {
       // the last walk, stored: its entries, exits and rows stand until
       // the fix-up moves them
       if (n > 0) entry = ck[0];
@@ -383,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
         uint8_t* dst = reinterpret_cast<uint8_t*>(word) + rg % 2;
         if (mask != 0xffu) bits |= *dst & ~mask;
         *dst = static_cast<uint8_t>(bits);
-        if (!a.incremental && rg % 2 == 0) reinterpret_cast<uint16_t*>(word)[1] = 0;
+        if (!incremental && rg % 2 == 0) reinterpret_cast<uint16_t*>(word)[1] = 0;
       }
     }
     tile_in = s_exit[last_p][sl];
@@ -393,37 +416,60 @@ __global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
   if (a.rewalked != nullptr && rewalked) atomicAdd(a.rewalked, rewalked);
 }
 
-// state[0]: converged (entries stopped changing); state[1]: walks run.
-__global__ void thread_kernel(const int32_t* __restrict__ exits,
-                              int32_t* __restrict__ ent, int start,
-                              int32_t* state) {
-  if (state[0]) return;
-  bool changed = false;
-  for (int s = threadIdx.x; s < kStreams; s += blockDim.x) {
-    const int32_t v = s == 0 ? start : exits[s - 1];
-    changed |= v != ent[s];
-    ent[s] = v;
-  }
-  const int any = __syncthreads_or(changed);
-  if (threadIdx.x == 0) {
-    state[1] += 1;
-    if (!any) state[0] = 1;
-  }
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2) walk_kernel(const WalkArgs a) {
+  extern __shared__ int32_t s_tab[];
+  const Tables tab = load_tables(a, s_tab);
+  __syncthreads();
+  walk_block<K>(a, tab, blockIdx.x, a.entries, false);
 }
 
-__global__ void fill_kernel(int32_t* __restrict__ p, int n, int32_t v) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    p[i] = v;
+// The threading fixpoint in one cooperative launch (see the top of the
+// file). ent: int32 [kStreams] scratch, the entries of the next walk;
+// state: int32 [4] ← (converged, walks run), then the two "changed"
+// words of the round parities, which the kernel zeroes itself.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2) fixpoint_kernel(const WalkArgs a, int32_t* ent,
+                                                               int max_rounds, int32_t* state) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  extern __shared__ int32_t s_tab[];
+  const Tables tab = load_tables(a, s_tab);
+  // the words of rounds 0 and 1: zero before the first grid sync, which
+  // every block passes before it can set one
+  if (blockIdx.x == 0 && threadIdx.x < 2) state[2 + threadIdx.x] = 0;
+  __syncthreads();
+  const int gt = blockIdx.x * kThreads + threadIdx.x;
+  const int g_threads = gridDim.x * kThreads;
+  int n = 0;
+  bool converged = false;
+  for (;;) {
+    for (int blk = blockIdx.x; blk < kBlocks; blk += gridDim.x) {
+      walk_block<K>(a, tab, blk, n > 0 ? ent : nullptr, n > 0);
+    }
+    grid.sync();
+    int32_t* changed = state + 2 + (n & 1);
+    bool moved = false;
+    for (int s = gt; s < kStreams; s += g_threads) {
+      const int32_t v = s == 0 ? a.start : __ldcg(a.exits + s - 1);
+      moved |= v != (n == 0 ? a.start : __ldcg(ent + s));
+      ent[s] = v;
+    }
+    if (__syncthreads_or(moved) && threadIdx.x == 0) *changed = 1;
+    // the next round's word: every block read it (round n - 1) before
+    // the sync above, and none sets it before the next one
+    if (blockIdx.x == 0 && threadIdx.x == 0) state[2 + ((n + 1) & 1)] = 0;
+    grid.sync();
+    ++n;
+    converged = __ldcg(changed) == 0;
+    if (converged || n >= max_rounds) break;
   }
-}
-
-__global__ void fallback_kernel(int32_t* __restrict__ bm, int64_t n,
-                                const int32_t* state) {
-  if (state[0]) return;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    bm[i] = -1;
+  if (!converged) {
+    const int64_t n_bm = static_cast<int64_t>(a.s_w) * (kStreamRows / 16) * kLanes;
+    for (int64_t i = gt; i < n_bm; i += g_threads) a.bm[i] = -1;
+  }
+  if (gt == 0) {
+    state[0] = converged;
+    state[1] = n;
   }
 }
 
@@ -441,16 +487,23 @@ int check_args(int64_t s_w, int n_flat, int k, int m, int acc_bit, int start) {
 
 // The walk's shared memory is above the 48 KiB default: allowed once per
 // device and kernel (a bit per device index).
-template <int K>
-cudaError_t launch_k(const WalkArgs& a, int device, cudaStream_t st) {
-  static std::atomic<uint64_t> allowed{0};
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, std::atomic<uint64_t>& allowed, int device) {
   const uint64_t bit = 1ull << (device & 63);
   if (!(allowed.load() & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        walk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDynSmem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDynSmem));
     if (err != cudaSuccess) return err;
     allowed.fetch_or(bit);
   }
+  return cudaSuccess;
+}
+
+template <int K>
+cudaError_t launch_k(const WalkArgs& a, int device, cudaStream_t st) {
+  static std::atomic<uint64_t> allowed{0};
+  const cudaError_t err = allow_smem(walk_kernel<K>, allowed, device);
+  if (err != cudaSuccess) return err;
   walk_kernel<K><<<kBlocks, kThreads, kDynSmem, st>>>(a);
   return cudaGetLastError();
 }
@@ -461,6 +514,44 @@ cudaError_t launch_walk(const WalkArgs& a, int k, int device, cudaStream_t st) {
     case 2: return launch_k<2>(a, device, st);
     default: return launch_k<1>(a, device, st);
   }
+}
+
+// The fixpoint's grid: the walk blocks that fit the card at once
+// (occupancy x SMs, found once per device), at most kBlocks and at most
+// max_blocks when that is positive. A card that cannot hold one block
+// per SM, or no cooperative launch, is refused: there is no queued form.
+template <int K>
+cudaError_t launch_fixpoint_k(const WalkArgs& a, int32_t* ent, int max_rounds, int32_t* state,
+                              int max_blocks, int* grid_out, int device, cudaStream_t st) {
+  static std::atomic<uint64_t> allowed{0};
+  static std::atomic<int> fits[64];  // blocks resident at once, per device (0: not found yet)
+  cudaError_t err = allow_smem(fixpoint_kernel<K>, allowed, device);
+  if (err != cudaSuccess) return err;
+  int grid = fits[device & 63].load();
+  if (grid == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fixpoint_kernel<K>, kThreads,
+                                                          kDynSmem);
+    }
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    grid = std::min(kBlocks, per_sm * sms);
+    fits[device & 63].store(grid);
+  }
+  if (max_blocks > 0) grid = std::min(grid, max_blocks);
+  *grid_out = grid;
+  WalkArgs args = a;
+  void* params[] = {&args, &ent, &max_rounds, &state};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fixpoint_kernel<K>),
+                                    dim3(grid), dim3(kThreads), params, kDynSmem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 WalkArgs make_args(const void* words, int64_t s_w, const void* flat,
@@ -481,8 +572,6 @@ WalkArgs make_args(const void* words, int64_t s_w, const void* flat,
   a.bm = nullptr;
   a.exits = nullptr;
   a.ckpt = nullptr;
-  a.incremental = 0;
-  a.done = nullptr;
   a.rewalked = static_cast<unsigned long long*>(rewalked);
   return a;
 }
@@ -544,44 +633,39 @@ int gt_stride_walk(const void* words, int64_t s_w, const void* flat,
   return static_cast<int>(launch_walk(a, k, device, static_cast<cudaStream_t>(stream)));
 }
 
-// The threading fixpoint: up to max_rounds walks, queued at once.
-// ent: device int32 [128, 128] scratch (the current entries); ckpt:
-// device int32 scratch of ckpt_words >= gt_stride_ckpt_words(s_w);
-// state: device int32 [2] ← (converged, walks run). bm ends as the
-// bitmap of the walk from the converged entries, or all -1.
+// The threading fixpoint: up to max_rounds walks in one cooperative
+// launch. ent: device int32 [128, 128] scratch (the current entries);
+// ckpt: device int32 scratch of ckpt_words >= gt_stride_ckpt_words(s_w);
+// state: device int32 [4] ← (converged, walks run, 2 words of the
+// kernel's own). bm ends as the bitmap of the walk from the converged
+// entries, or all -1. max_blocks > 0 caps the grid (the blocks then
+// take more tiles each); *grid ← the grid launched.
 int gt_stride_fixpoint(const void* words, int64_t s_w, const void* flat,
                        int n_flat, const void* idx, int k, int m,
                        int acc_bit, int start, int max_rounds, void* ent,
                        void* ckpt, int64_t n_ckpt, void* bm, void* exits,
-                       void* state, void* rewalked, int device, void* stream) {
+                       void* state, void* rewalked, int max_blocks, int* grid,
+                       int device, void* stream) {
   int bad = check_args(s_w, n_flat, k, m, acc_bit, start);
   if (bad) return bad;
-  if (max_rounds < 1 || ckpt == nullptr || n_ckpt < ckpt_words(s_w)) {
+  if (max_rounds < 1 || ckpt == nullptr || n_ckpt < ckpt_words(s_w) || grid == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int32_t* e = static_cast<int32_t*>(ent);
-  int32_t* sflag = static_cast<int32_t*>(state);
-  err = cudaMemsetAsync(sflag, 0, 2 * sizeof(int32_t), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fill_kernel<<<kStreams / 256, 256, 0, st>>>(e, kStreams, start);
   WalkArgs a = make_args(words, s_w, flat, n_flat, idx, k, m, acc_bit, start, rewalked);
-  a.entries = e;
   a.bm = static_cast<int32_t*>(bm);
   a.exits = static_cast<int32_t*>(exits);
   a.ckpt = static_cast<int32_t*>(ckpt);
-  a.done = sflag;
-  for (int round = 0; round < max_rounds; ++round) {
-    a.incremental = round > 0;
-    err = launch_walk(a, k, device, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    thread_kernel<<<1, 1024, 0, st>>>(a.exits, e, start, sflag);
+  int32_t* e = static_cast<int32_t*>(ent);
+  int32_t* sf = static_cast<int32_t*>(state);
+  switch (k) {
+    case 4: err = launch_fixpoint_k<4>(a, e, max_rounds, sf, max_blocks, grid, device, st); break;
+    case 2: err = launch_fixpoint_k<2>(a, e, max_rounds, sf, max_blocks, grid, device, st); break;
+    default: err = launch_fixpoint_k<1>(a, e, max_rounds, sf, max_blocks, grid, device, st);
   }
-  const int64_t n_bm = s_w * (kStreamRows / 16) * kLanes;
-  fallback_kernel<<<264, 256, 0, st>>>(a.bm, n_bm, sflag);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

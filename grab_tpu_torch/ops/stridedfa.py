@@ -28,9 +28,9 @@ The host planner (class_runs, class_runs_parity, stride_plan) and the
 tables (StrideDfaTables) are copies of the reference's, bit for bit.
 ``stride_dfa_scan`` and ``stride_dfa_fixpoint`` are the entry points:
 on CUDA tensors they launch the hand-written kernel csrc/stridedfa.cu
-(the fixpoint queues all its rounds without a host sync), on CPU tensors
-they run the plain PyTorch walk below, which the tests hold against the
-reference's kernel in interpret mode and its numpy oracle.
+(the fixpoint is one cooperative launch that loops on the card), on
+CPU tensors they run the plain PyTorch walk below, which the tests hold
+against the reference's kernel in interpret mode and its numpy oracle.
 
 ``stride_transpose`` is the relayout in front of the walk for a buffer
 that arrives in linear layout (stream rows [16384, s_w]): on a CUDA
@@ -430,8 +430,10 @@ def _kernel_lib():
             ctypes.c_int64,  # its int32 words
             ctypes.c_void_p,  # bm
             ctypes.c_void_p,  # exits
-            ctypes.c_void_p,  # state: [converged, walks run]
+            ctypes.c_void_p,  # state: [converged, walks run, 2 words of the kernel's]
             ctypes.c_void_p,  # re-walked word counter
+            ctypes.c_int,  # grid cap (0: as many blocks as fit the card)
+            ctypes.POINTER(ctypes.c_int),  # out: the grid launched
         ] + tail
         lib.gt_stride_ckpt_words.restype = ctypes.c_int64
         lib.gt_stride_ckpt_words.argtypes = [ctypes.c_int64]
@@ -514,20 +516,27 @@ def stride_dfa_scan(
 stride_dfa_scan.launches = 0
 
 
-def stride_dfa_fixpoint(words2d_t: torch.Tensor, tables: StrideDfaTables):
+def stride_dfa_fixpoint(words2d_t: torch.Tensor, tables: StrideDfaTables, *,
+                        max_blocks: int = 0):
     """The threading fixpoint → (bm, walks run, converged), at most
     MAX_ROUNDS walks (read at call time).
 
-    CUDA tensors: all MAX_ROUNDS walks are queued at once with no host
-    sync; after each walk a one-block kernel threads the exits into the
-    next entries and sets a device flag when they stopped changing,
-    which makes the later walks return at once; a last kernel fills the
-    bitmap with -1 if the flag was never set. The first walk keeps its
-    checkpoints in a device scratch (``segment_geometry``), so a later
-    walk re-walks only the streams whose entry changed, and only until
-    they meet the last walk. Walks run and converged
-    come back as device int32 scalars; every queued walk counts in
-    ``stride_dfa_scan.launches``. CPU tensors: stride_fixpoint_torch."""
+    CUDA tensors: ONE cooperative launch of csrc/stridedfa.cu's
+    fixpoint kernel on the current stream, with no stream operation
+    before it and no host sync (counted in
+    ``stride_dfa_fixpoint.launches``; ``stride_dfa_fixpoint.grid``: the
+    last launch's blocks). Its grid walks, threads the exits into the
+    next entries and stops on the card when they no longer change or
+    after MAX_ROUNDS walks, then fills the bitmap with -1 if they still
+    changed. The first walk keeps its checkpoints in a device scratch
+    (``segment_geometry``), so a later walk re-walks only the streams
+    whose entry changed, and only until they meet the last walk. The
+    grid is as many walk blocks (at most 256) as the card holds at once,
+    capped by ``max_blocks`` when that is positive (the card checks use
+    it to drive the tile split: fewer blocks each walk more stream
+    tiles); a card that holds none, or a refused launch, raises. Walks
+    run and converged come back as device int32 scalars. CPU tensors:
+    stride_fixpoint_torch."""
     s_w = _check_words(words2d_t)
     if words2d_t.device.type == "cpu":
         return stride_fixpoint_torch(words2d_t, tables, MAX_ROUNDS)
@@ -536,16 +545,23 @@ def stride_dfa_fixpoint(words2d_t: torch.Tensor, tables: StrideDfaTables):
     exits = torch.empty((STREAM_ROWS, LANES), dtype=torch.int32, device=dev)
     ent = torch.empty((STREAM_ROWS, LANES), dtype=torch.int32, device=dev)
     ckpt = torch.empty(segment_geometry(s_w)[3], dtype=torch.int32, device=dev)
-    state = torch.empty(2, dtype=torch.int32, device=dev)
+    state = torch.empty(4, dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
     err = _kernel_lib().gt_stride_fixpoint(
         *_launch_args(words2d_t, tables, s_w), MAX_ROUNDS,
         ent.data_ptr(), ckpt.data_ptr(), ckpt.numel(), bm.data_ptr(), exits.data_ptr(),
-        state.data_ptr(), _fixup_counter(dev).data_ptr(), *_dev_tail(dev),
+        state.data_ptr(), _fixup_counter(dev).data_ptr(), max_blocks,
+        ctypes.byref(grid), *_dev_tail(dev),
     )
     if err != 0:
         raise RuntimeError(f"strided-DFA fixpoint launch failed: CUDA error {err}")
-    stride_dfa_scan.launches += MAX_ROUNDS
+    stride_dfa_fixpoint.launches += 1
+    stride_dfa_fixpoint.grid = grid.value
     return bm, state[1], state[0]
+
+
+stride_dfa_fixpoint.launches = 0
+stride_dfa_fixpoint.grid = None
 
 
 # -- the relayout: stream rows → the walk's stream-major geometry -----------

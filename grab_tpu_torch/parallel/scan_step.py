@@ -20,11 +20,12 @@ shard_map program; the port keeps the contract and drops the program:
 
 ``make_sharded_word_scan`` is the production step (the core-word
 kernel per device); ``make_sharded_scan`` keeps the reference's
-byte-granular step: per shard, the last-resort walk's counts
-(ops/dfa_scan.py ``dfa_walk_counts``: on a card the csrc/dfa_walk.cu
-walk and its count kernel, on the CPU the plain walk) or the literal
-scan (ops/literal_scan.py, plain PyTorch, as the reference's is jnp),
-then per-block counts. No CLI route runs it.
+byte-granular step: per shard, the per-block counts of the last-resort
+walk (ops/dfa_scan.py ``dfa_walk_counts``: on a card the csrc/dfa_walk.cu
+walk and its count kernel, on the CPU the plain walk) or of the literal
+scan (ops/literal_scan.py ``literal_block_counts``: on a card one launch
+of csrc/literal_scan.cu, on the CPU the plain scan and block counts).
+No CLI route runs it.
 """
 
 from __future__ import annotations
@@ -93,15 +94,16 @@ def make_sharded_scan(compiled, devices: Sequence[torch.device], shard_bytes: in
 
     Returns ``fn(data) -> (counts, total)``: ``data`` is uint8
     [n_shards * shard_bytes] on any device; shard i is scanned on
-    ``devices[i]`` by the byte-level literal scan or, for a pattern with
-    no literal factor, the multi-stream DFA walk with the HALO overlap
-    (on a card: the walk kernel and its count kernel, two launches).
+    ``devices[i]`` by the byte-level literal scan (on a card: one launch
+    of the literal kernel) or, for a pattern with no literal factor, the
+    multi-stream DFA walk with the HALO overlap (on a card: the walk
+    kernel and its count kernel, two launches).
     ``counts`` holds each shard's int32 [shard_bytes / CANDIDATE_BLOCK]
     per-block candidate counts, on its device, and ``total`` their sum,
     int32 [1] on the first device (the reference's psum).
     """
-    from grab_tpu_torch.ops.dfa_scan import WalkTables, bitmap_block_counts, dfa_walk_counts
-    from grab_tpu_torch.ops.literal_scan import literal_matrix, literal_scan_bitmap
+    from grab_tpu_torch.ops.dfa_scan import WalkTables, dfa_walk_counts
+    from grab_tpu_torch.ops.literal_scan import LiteralKeys, literal_block_counts
     from grab_tpu_torch.scan_pipeline import CANDIDATE_BLOCK, HALO
 
     devices = [torch.device(d) for d in devices]
@@ -113,11 +115,10 @@ def make_sharded_scan(compiled, devices: Sequence[torch.device], shard_bytes: in
         def block_counts(shard):
             return dfa_walk_counts(shard, tables, n_streams, HALO, CANDIDATE_BLOCK)
     else:
-        mat, lens = literal_matrix(compiled.literals)
-        lengths = tuple(int(x) for x in lens)
+        keys = LiteralKeys(compiled.literals)  # uploaded once per device at first use
 
         def block_counts(shard):
-            return bitmap_block_counts(literal_scan_bitmap(mat, lengths, shard), CANDIDATE_BLOCK)
+            return literal_block_counts(shard, keys, CANDIDATE_BLOCK)
 
     def fn(data: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
         if data.shape != (len(devices) * shard_bytes,) or data.dtype != torch.uint8:

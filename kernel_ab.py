@@ -4,7 +4,7 @@ checkout it runs from: the strided-DFA walk (B2), the fused ensemble
 (B6), the alphabet runs (B3), the class sequences (B4), the XOR filter
 (B5) and the last-resort DFA walk (W1).
 
-    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor|walk]
+    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor|walk|fixpoint]
 
 Run it from the root of two checkouts in turns (A, B, B, A) on one
 card, one after the other, to compare two versions of the kernels: both
@@ -29,7 +29,12 @@ those sets and on 150, 250 and 500 literals (7, 11 and 22 bank rows);
 global memory, an automaton that never synchronises) through
 ``DfaWalkMember.packed`` (the kernel, or the plain loop in a checkout
 without one), the median of 5 runs of 4 launches, and in a checkout
-with the segmented walk the bytes its fix-up re-walked.
+with the segmented walk the bytes its fix-up re-walked; ``fixpoint``
+B2's threading fixpoint (``StrideDfaScanner.run_t``) of
+``.{0,2}(?:[0-9a-zA-Z]{4})+`` and ``a[0-9]*b`` on 32 MiB buffers born
+transposed (chip_smoke.phase_stride_scanner's, 4 distinct copies), the
+better of two runs of 20 calls, beside the profiler's device ms per
+call by kernel name, the walks run and the launches a call makes.
 """
 
 import importlib.util
@@ -235,6 +240,41 @@ def walk_times(rng, dev):
     return res
 
 
+def fixpoint_times(rng, dev):
+    """run_t of the two threading patterns; → {label: {ms, by_name,
+    walks, launches per call by wrapper}}."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    split = own_smoke().profile_split
+    punct = cs.punct_bytes(np, rng, cs.BUF)
+    for s in range(3, 16000, 211):
+        cs.plant_run(punct, s * 2048 - 9, 30)
+    cs.plant_run(punct, 5 * 2048 + 100, 6000)
+    digits = np.full(cs.BUF, ord(" "), dtype=np.uint8)
+    for pos, span in ((9 * 2048 + 100, 7000), (4000 * 2048 - 30, 50), (cs.BUF - 3000, 2990)):
+        digits[pos] = ord("a")
+        digits[pos + 1 : pos + span] = ord("7")
+        digits[pos + span] = ord("b")
+    wrappers = [w for w in (sd.stride_dfa_scan, getattr(sd, "stride_dfa_fixpoint", None))
+                if hasattr(w, "launches")]
+    res = {}
+    for label, pat, buf in (("-E .{0,2}(?:[0-9a-zA-Z]{4})+", rb".{0,2}(?:[0-9a-zA-Z]{4})+",
+                             punct), ("a[0-9]*b", rb"a[0-9]*b", digits)):
+        cp = compile_multi([pat])
+        sc = sd.StrideDfaScanner(cp.dfa, cp.max_len, cs.BUF)
+        w = torch.from_numpy(sc.prep_t(buf)).to(dev)
+        ring = [w] + [w.clone() for _ in range(3)]
+        before = [f.launches for f in wrappers]
+        _bm, n, _conv = sc.run_t(ring[0])
+        launched = {f.__name__: f.launches - b for f, b in zip(wrappers, before)}
+        res[label] = {"ms": min(cs.time_cuda(torch, lambda i: sc.run_t(ring[i % 4]), 20)
+                                for _ in range(2)),
+                      "by_name": split(torch, lambda i: sc.run_t(ring[i % 4])),
+                      "walks": int(n), "launches_per_call": launched}
+    return res
+
+
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "both"
     if not torch.cuda.is_available():
@@ -255,6 +295,8 @@ def main() -> int:
         out["xor"] = xor_times(rng, dev)
     if what == "walk":
         out["walk_ms"] = walk_times(rng, dev)
+    if what == "fixpoint":
+        out["fixpoint"] = fixpoint_times(rng, dev)
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

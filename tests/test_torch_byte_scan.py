@@ -156,3 +156,105 @@ def test_make_sharded_scan_equal(n_shards, pattern, needle):
     assert total.dtype == torch.int32 and int(total) == int(ref_total) >= n_shards
     with pytest.raises(ValueError):
         fn(torch.from_numpy(data[:-1]))
+
+
+# -- the literal kernel's keys and window compare (csrc/literal_scan.cu) ----
+
+
+def literal_kernel_model(data: np.ndarray, mask: np.ndarray, value: np.ndarray,
+                         block: int = 512) -> np.ndarray:
+    """A numpy model of the kernel: per 512 bytes, lane l holds bytes
+    [16l, 16l + 16) as four little-endian words and takes the next 8 from
+    lane l + 1 (lane 31 from the next 512 bytes, or zero past the end);
+    the window at byte i of the lane is the funnel shift of those words;
+    a position hits when some key's (window & mask) == value; its hits
+    are counted per block. → int32 [N / block]."""
+    n = data.size
+    words = data.view("<u4").reshape(-1, 32, 4).astype(np.uint64)  # [chunks, lanes, 4]
+    nxt = np.zeros(words.shape[:2] + (2,), np.uint64)
+    nxt[:, :31] = words[:, 1:, :2]
+    nxt[:-1, 31] = words[1:, 0, :2]  # the last chunk's lane 31: the zero tail
+    w = np.concatenate([words, nxt], axis=2)  # [chunks, lanes, 6]
+    hits = np.zeros(words.shape[:2] + (16,), bool)
+    low32 = np.uint64(0xFFFFFFFF)
+
+    def funnel(a, b, r):  # __funnelshift_r(a, b, 8r): the low word of (b:a) >> 8r
+        return ((a | b << np.uint64(32)) >> np.uint64(8 * r)) & low32
+
+    for i in range(16):
+        q, r = divmod(i, 4)
+        lo, hi = funnel(w[..., q], w[..., q + 1], r), funnel(w[..., q + 1], w[..., q + 2], r)
+        win = hi << np.uint64(32) | lo
+        hits[..., i] = ((win[..., None] & mask) == value).any(axis=-1)
+    return hits.reshape(n // block, -1).sum(axis=1).astype(np.int32)
+
+
+W2_SETS = {  # 1-, 3-, 8- and 11-byte literals, a zero-length and NUL-ending ones
+    "K1": [b"fooxyzzbar"],
+    "K16": [b"q", b"fox", b"abcdefgh", b"needle-in-a", b"", b"ab\x00", b"xyz\x00\x00",
+            b"\x00\x00\x00"] + [b"lit%02d-xy" % i for i in range(8)],
+    "K300": [bytes(np.random.default_rng(i).integers(33, 127, size=1 + i % 11, dtype=np.uint8))
+             for i in range(300)],
+}
+
+
+def w2_data(lits, n, seed):
+    """Text with sparse NULs, every literal planted across block edges
+    and at random, and the buffer's last bytes the head of a NUL-ending
+    literal (or a whole literal): a hit in the shard's last 7 bytes."""
+    rng = np.random.default_rng(seed)
+    data = buffer("text", n, seed)
+    data[rng.integers(0, n, size=n // 500)] = 0
+    for i, lit in enumerate(lits * max(1, 64 // len(lits))):
+        pos = 512 * (i % (n // 512)) + 509 if i % 2 else int(rng.integers(0, n - 16))
+        data[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)[: n - pos]
+    nul_end = [l for l in lits if l.endswith(b"\x00") and l.strip(b"\x00")]
+    tail = nul_end[0].rstrip(b"\x00") if nul_end else min(lits, key=len)
+    data[n - len(tail) :] = np.frombuffer(tail, np.uint8)
+    return data
+
+
+@pytest.mark.parametrize("case", sorted(W2_SETS))
+def test_literal_kernel_model_equals_reference(case):
+    """The host's (mask, value) keys and the model of the kernel's window
+    compare give the reference literal_scan_bitmap's block counts."""
+    lits = W2_SETS[case]
+    n = 16 << 10
+    data = w2_data(lits, n, len(lits))
+    keys = port_ls.LiteralKeys(lits)
+    assert keys.mask.dtype == keys.value.dtype == np.uint64 and keys.mask.shape == (len(lits),)
+    want = np.asarray(ref_dfa.bitmap_block_counts(
+        jnp.asarray(ref_ls.np_literal_scan_bitmap(lits, data)), 512))
+    got = literal_kernel_model(data, keys.mask, keys.value)
+    assert np.array_equal(got, want) and want[-1] > 0
+    if case == "K16":  # the zero-length literal hits every NUL byte
+        assert want.sum() >= int((data == 0).sum())
+
+
+def test_literal_keys_cover_max_length_one():
+    """mask = max(L, 1) bytes; value = the literal's capped bytes."""
+    mask, value = port_ls.literal_keys(*port_ls.literal_matrix(
+        [b"", b"a", b"ab\x00", b"abcdefgh", b"abcdefghijk"]))
+    assert mask.tolist() == [0xFF, 0xFF, 0xFFFFFF, 2**64 - 1, 2**64 - 1]
+    assert value.tolist() == [0, 0x61, 0x6261, 0x6867666564636261, 0x6867666564636261]
+    with pytest.raises(ValueError):
+        port_ls.LiteralKeys([])
+
+
+@pytest.mark.parametrize("case", sorted(W2_SETS))
+def test_literal_block_counts_cpu_equals_reference_body(case):
+    """literal_block_counts on a CPU tensor == the reference's per-shard
+    body (literal_scan_bitmap, then bitmap_block_counts), and counts no
+    kernel launch."""
+    lits = W2_SETS[case]
+    n = 8 << 10
+    data = w2_data(lits, n, 3 + len(lits))
+    mat, lens = ref_ls.literal_matrix(lits)
+    want = np.asarray(ref_dfa.bitmap_block_counts(ref_ls.literal_scan_bitmap(
+        jnp.asarray(mat), tuple(int(x) for x in lens), jnp.asarray(data)), 512))
+    before = port_ls.literal_block_counts.launches
+    got = port_ls.literal_block_counts(torch.from_numpy(data), port_ls.LiteralKeys(lits), 512)
+    assert port_ls.literal_block_counts.launches == before
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        port_ls.literal_block_counts(torch.from_numpy(data[:-1]), port_ls.LiteralKeys(lits), 512)

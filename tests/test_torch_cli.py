@@ -560,3 +560,33 @@ def test_engine_routes_alpha_and_walk(digits):
     eng = Engine([rb".{0,2}(?:[a-f][0-9][g-m][A-F][N-Z]){3}"],
                  EngineConfig(device="cpu", scan_buf_size=64 << 10))
     assert eng._get_scanner().mode == "dfa"
+
+
+def test_resume_manifest_identical(tmp_path):
+    """--resume (tests/test_cli.py test_resume_manifest): the first run
+    prints 3 matches, the second nothing, and after touching b.txt the
+    third only its 2; stdout, exit code and the manifest file equal
+    grab_tpu.cli's at each step."""
+    import time
+
+    tree = tmp_path / "tree"
+    (tree / "d").mkdir(parents=True)
+    (tree / "d" / "a.txt").write_bytes(b"first needle line\nsecond line\n")
+    (tree / "b.txt").write_bytes(b"needle at zero\nagain a needle\n")
+    manifests = {"ref": tmp_path / "ref.jsonl", "port": tmp_path / "port.jsonl"}
+
+    def step():
+        got = {}
+        for side, cli in (("ref", ref_cli), ("port", port_cli)):
+            rc, out, _ = _run(cli, ["--resume", str(manifests[side]), "-r", "-l", "-O",
+                                    "needle", str(tree)])
+            got[side] = (rc, out, manifests[side].read_bytes())
+        assert got["port"] == got["ref"]
+        return got["port"][1]
+
+    assert step().count(b"Match") == 3
+    assert step() == b""
+    t = time.time() + 5
+    os.utime(tree / "b.txt", (t, t))
+    out = step()
+    assert out.count(b"Match") == 2 and b"a.txt" not in out

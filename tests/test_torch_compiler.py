@@ -45,7 +45,23 @@ CONFORMANCE_PATTERNS = [
     rb"needle", rb"ne+dle", rb"n[a-z]+e", rb"zzznotfound", rb"\bneedle\b",
     b"linus", b"l[imn]nus", b"needleXY", b"zQx##missing##",
 ]
-SINGLE = [(p, False) for p in PARSER_PATTERNS + ALPHA_PATTERNS + CONFORMANCE_PATTERNS]
+# tests/test_lookaround_flags.py: lookaround, inline flags, named groups
+LOOKAROUND_PATTERNS = [
+    rb"(?=fo)f.o", rb"foo(?!bar)", rb"(?<=a)b+", rb"(?<!a)b+", rb"(?i)fook", rb"(?i:fo)ok",
+    rb"(?s)a.b", rb"(?m)^boq", rb"(?m)coq$", rb"(?P<g>aqz)x\k<g>", rb"(?x) a q z # comment",
+    rb"(?i)[a-f]{3}q", rb"\w+(?=;)",
+]
+# tests/test_pcre_surface.py: \p{..}, conditionals, caseless backreferences,
+# subroutine calls and recursion
+PCRE_PATTERNS = [
+    rb"\p{Lu}\p{Ll}+\p{Nd}", rb"\p{Greek}", rb"(?i)\p{Lu}", rb"(?i)[\p{Lu}x]",
+    rb"(a)?(?(1)b|c)x", rb"(?<g>\d)?(?(<g>)\.\d|Z)", rb"(?(?=\d)\d\d|[a-z]z)9",
+    rb"(?i)([a-d]{2})\1", rb"(?i)x([mn])-\1", rb"\((?:[^()]|(?R))*\)", rb"([0-9]{2})-(?1)",
+    rb"(?(DEFINE)(?<oct>25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9]?))(?&oct)\.(?&oct)",
+    rb"(?2)x(q)(ab|cd)", rb"((?(R1)b|a)(?1)?)", rb"\p{NotAScript}",
+]
+SINGLE = [(p, False) for p in PARSER_PATTERNS + ALPHA_PATTERNS + CONFORMANCE_PATTERNS
+          + LOOKAROUND_PATTERNS + PCRE_PATTERNS]
 SINGLE += [(p, True) for p in (b"needleXY", b"a.b*c", b"\x80\xff\x00z", b"ab")]
 BATCHES = [
     [b"needle", b"linus", b"foo[a-z]+bar"],
@@ -94,6 +110,44 @@ def test_compiled_pattern_equal(pattern, literal_mode):
     want = _compile(ref_compile, [pattern], literal_mode)
     got = _compile(port_compile, [pattern], literal_mode)
     assert got == want
+
+
+def _latin1ish(A):
+    """The synthetic Latin-1 LC_CTYPE of tests/test_locale_tables.py:
+    accented letters are alpha and word, NBSP is space."""
+    t = {
+        "isalpha": A.ALPHA_MASK, "isdigit": A.DIGIT_MASK, "isalnum": A.ALNUM_MASK,
+        "isspace": A.SPACE_MASK | (1 << 0xA0), "isupper": A.UPPER_MASK,
+        "islower": A.LOWER_MASK,
+    }
+    for b in (0xE9, 0xE8, 0xC9, 0xFC):
+        t["isalpha"] |= 1 << b
+        t["isalnum"] |= 1 << b
+    t["word"] = t["isalnum"] | (1 << 0x5F)
+    return t
+
+
+@pytest.mark.parametrize("pattern", [rb"\w+", rb"[[:alpha:]]+x", rb"\s\S+", rb"\bcaf\w\b"],
+                         ids=repr)
+def test_compiled_pattern_equal_in_latin1_locale(pattern):
+    """A non-C LC_CTYPE table set in both packages: class escapes, POSIX
+    classes and \\b compile alike, field for field."""
+    from grab_tpu.regex import ast as ref_ast
+    from grab_tpu.regex import ctype as ref_ctype
+    from grab_tpu_torch.regex import ast as port_ast
+    from grab_tpu_torch.regex import ctype as port_ctype
+
+    ref_ctype.set_tables(_latin1ish(ref_ast))
+    port_ctype.set_tables(_latin1ish(port_ast))
+    try:
+        want = _compile(ref_compile, [pattern], False)
+        got = _compile(port_compile, [pattern], False)
+    finally:
+        ref_ctype.set_tables(None)
+        port_ctype.set_tables(None)
+    assert got == want
+    c_locale = _compile(port_compile, [pattern], False)
+    assert c_locale != got  # the table changed what compiled
 
 
 @pytest.mark.parametrize("batch", BATCHES, ids=[f"batch{i}" for i in range(len(BATCHES))])

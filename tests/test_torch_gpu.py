@@ -10,6 +10,8 @@ JAX, so it also runs where JAX is not installed:
 geometry.)
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -245,20 +247,24 @@ def test_stride_fixpoint_scratch_geometry(cuda):
     need = sd.segment_geometry(32)[3]
     ckpt = torch.empty(need - 1, dtype=torch.int32, device=cuda)
     out = [torch.empty(n, dtype=torch.int32, device=cuda) for n in (128 * LANES, 32 * 8 * LANES,
-                                                                    128 * LANES, 2)]
+                                                                    128 * LANES, 4)]
     counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    grid = ctypes.c_int(0)
     err = lib.gt_stride_fixpoint(*sd._launch_args(w, t, 32), 24, out[0].data_ptr(),
                                  ckpt.data_ptr(), ckpt.numel(), out[1].data_ptr(),
-                                 out[2].data_ptr(), out[3].data_ptr(), counter.data_ptr(),
-                                 *sd._dev_tail(cuda))
-    assert err != 0
+                                 out[2].data_ptr(), out[3].data_ptr(), counter.data_ptr(), 0,
+                                 ctypes.byref(grid), *sd._dev_tail(cuda))
+    assert err != 0 and grid.value == 0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("max_rounds", [24, 2])
-def test_stride_fixpoint_matches_plain(cuda, monkeypatch, max_rounds):
-    """Threading across streams: walks run, convergence and the bitmap
-    (all ones at the round cap) equal the plain loop's."""
+@pytest.mark.parametrize("max_rounds", [24, 2, 1])
+@pytest.mark.parametrize("max_blocks", [0, 100, 1])
+def test_stride_fixpoint_matches_plain(cuda, monkeypatch, max_rounds, max_blocks):
+    """Threading across streams: ONE fixpoint launch (no walk launch)
+    whatever MAX_ROUNDS is; walks run, convergence and the bitmap (all
+    ones at the round cap) equal the plain loop's, also with the grid
+    capped below 256 blocks (each block walks several stream tiles)."""
     from grab_tpu_torch.ops import stridedfa as sd
     from grab_tpu_torch.regex.compiler import compile_multi
 
@@ -272,13 +278,116 @@ def test_stride_fixpoint_matches_plain(cuda, monkeypatch, max_rounds):
         buf[end] = ord("b")
     w = torch.from_numpy(sc.prep_t(buf))
     bm_p, n_p, conv_p = sd.stride_fixpoint_torch(w, sc.tables, max_rounds)
-    before = sd.stride_dfa_scan.launches
-    bm, n, conv = sc.run_t(w.to(cuda))
-    assert sd.stride_dfa_scan.launches == before + max_rounds
+    walks, fixpoints = sd.stride_dfa_scan.launches, sd.stride_dfa_fixpoint.launches
+    wd = w.to(cuda)
+    bm, n, conv = (sd.stride_dfa_fixpoint(wd, sc.tables, max_blocks=max_blocks) if max_blocks
+                   else sc.run_t(wd))
+    assert sd.stride_dfa_scan.launches == walks
+    assert sd.stride_dfa_fixpoint.launches == fixpoints + 1
+    assert sd.stride_dfa_fixpoint.grid == (max_blocks or sd.stride_dfa_fixpoint.grid) > 0
     torch.cuda.synchronize()
     assert (int(n), bool(conv)) == (n_p, conv_p)
     assert torch.equal(bm.cpu(), bm_p)
-    assert conv_p == (max_rounds == 24)
+    assert conv_p == (max_rounds == 24) and n_p <= max_rounds
+
+
+@pytest.mark.gpu
+def test_stride_fixpoint_non_synchronising_matches_plain(cuda):
+    """Q(?:[a-z]{2})*Q over one Q per stream at 8 MiB: every guess of
+    every walk is wrong; one fixpoint launch still gives the plain
+    loop's (bm, walks, converged), twice in a row (the kernel leaves
+    its round words as the next call needs them)."""
+    from grab_tpu_torch.ops import stridedfa as sd
+    from grab_tpu_torch.regex.compiler import compile_multi
+
+    dfa = compile_multi([rb"Q(?:[a-z]{2})*Q"]).dfa
+    t = sd.StrideDfaTables(dfa, sd.stride_plan(dfa))
+    w = torch.from_numpy(_nosync_words(128, 3))
+    bm_p, n_p, conv_p = sd.stride_fixpoint_torch(w, t, sd.MAX_ROUNDS)
+    wd = w.to(cuda)
+    for _ in range(2):
+        before = sd.stride_dfa_fixpoint.launches
+        bm, n, conv = sd.stride_dfa_fixpoint(wd, t)
+        assert sd.stride_dfa_fixpoint.launches == before + 1
+        torch.cuda.synchronize()
+        assert (int(n), bool(conv)) == (n_p, conv_p) and torch.equal(bm.cpu(), bm_p)
+
+
+LITERAL_CASES = {  # 1-, 3-, 8- and 11-byte literals, a zero-length and NUL-ending ones
+    "K1": [b"fooxyzzbar"],
+    "K16": [b"q", b"fox", b"abcdefgh", b"needle-in-a", b"", b"ab\x00", b"xyz\x00\x00",
+            b"\x00\x00\x00"] + [b"lit%02d-xy" % i for i in range(8)],
+    "K300": [b"k%03d" % i + b"xyzw"[: i % 5] for i in range(300)],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(LITERAL_CASES))
+def test_literal_block_counts_kernel_matches_plain(cuda, case):
+    """W2 (csrc/literal_scan.cu, one launch) == the plain scan and block
+    counts on the card at 32 MiB: planted literals across block edges,
+    NUL bytes (the zero-length literal's hits), and a hit in the shard's
+    last bytes against the zero tail."""
+    from grab_tpu_torch.ops import literal_scan as ls
+
+    lits = LITERAL_CASES[case]
+    n = 32 << 20
+    rng = np.random.default_rng(len(lits))
+    buf = rng.integers(32, 127, size=n, dtype=np.uint8)
+    buf[rng.integers(0, n, size=500)] = 0
+    for i in range(600):
+        lit = lits[i % len(lits)]
+        pos = int(rng.integers(0, n - 16)) if i % 2 else BLOCK * (i + 1) - len(lit) // 2
+        buf[pos : pos + len(lit)] = np.frombuffer(lit, dtype=np.uint8)
+    tail = b"ab" if case == "K16" else lits[-1]
+    buf[n - len(tail) :] = np.frombuffer(tail, dtype=np.uint8)
+    keys = ls.LiteralKeys(lits)
+    data = torch.from_numpy(buf).to(cuda)
+    before = ls.literal_block_counts.launches
+    got = ls.literal_block_counts(data, keys, BLOCK)
+    assert ls.literal_block_counts.launches == before + 1
+    want = ls.literal_block_counts_torch(data, keys, BLOCK)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got[-1]) > 0 and int(got.sum()) >= 600
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [1024, 4096])
+def test_literal_block_counts_kernel_wider_blocks(cuda, block):
+    """Blocks of several 512-byte chunks (a warp sums them) == the plain
+    counts, on 2 MiB plus one block with literals across chunk edges."""
+    from grab_tpu_torch.ops import literal_scan as ls
+
+    lits = LITERAL_CASES["K16"]
+    n = (2 << 20) + block
+    rng = np.random.default_rng(block)
+    buf = rng.integers(32, 127, size=n, dtype=np.uint8)
+    buf[rng.integers(0, n, size=300)] = 0
+    for i in range(400):
+        lit = lits[i % len(lits)]
+        pos = 512 * (i + 1) - len(lit) // 2 if i % 2 else int(rng.integers(0, n - 16))
+        buf[pos : pos + len(lit)] = np.frombuffer(lit, dtype=np.uint8)
+    keys = ls.LiteralKeys(lits)
+    data = torch.from_numpy(buf).to(cuda)
+    got = ls.literal_block_counts(data, keys, block)
+    want = ls.literal_block_counts_torch(data, keys, block)
+    torch.cuda.synchronize()
+    assert got.shape == (n // block,) and torch.equal(got, want) and int(want.sum()) > 400
+
+
+@pytest.mark.gpu
+def test_literal_block_counts_refuses_bad_input_on_card(cuda):
+    from grab_tpu_torch.ops import literal_scan as ls
+
+    keys = ls.LiteralKeys([b"foo"])
+    buf = torch.zeros(4096 + 16, dtype=torch.uint8, device=cuda)
+    before = ls.literal_block_counts.launches
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        ls.literal_block_counts(buf[1 : 1 + 4096], keys, BLOCK)
+    with pytest.raises(ValueError):  # a block the kernel does not take
+        ls.literal_block_counts(buf[:4096], keys, 256)
+    assert ls.literal_block_counts.launches == before
 
 
 @pytest.mark.gpu

@@ -252,6 +252,144 @@ def test_fixpoint_plain_matches_per_walk_loop():
     assert (n, conv) == (walks, True) and torch.equal(bm, bm2)
 
 
+# -- the fixpoint kernel's round protocol (csrc/stridedfa.cu fixpoint_kernel)
+
+KERNEL_TILES, KERNEL_THREADS = 256, 512  # 64-stream tiles (8 rows x 8 lanes), threads a block
+
+
+def _tile_streams(blk: int) -> np.ndarray:
+    rg, cg = divmod(blk, LANES // 8)
+    r = rg * 8 + np.arange(8)[:, None]
+    c = cg * 8 + np.arange(8)[None, :]
+    return (r * LANES + c).reshape(-1)
+
+
+def fixpoint_protocol_model(w2d, tables, max_rounds, grid, seed):
+    """A numpy model of the fixpoint kernel, phase by phase, with the
+    blocks of each phase taken in a shuffled order (blocks run in no
+    order between grid syncs): physical block j walks tiles j, j + grid,
+    ...; after round 0 a tile is walked again only if the entry of one of
+    its streams differs from the one its last walk started from (the
+    checkpoint), else its bitmap bytes and exits stand; the threading
+    is grid-stride over the streams by global thread index, a block that
+    changed an entry sets the round parity's word, block 0 zeroes the
+    next parity's word; the round words start as garbage and the kernel
+    zeroes both before its first sync. A tile's walk is the reference's
+    numpy walk of its streams (streams are independent given their
+    entries). → (bm, walks run, converged) as the kernel leaves them."""
+    rng = np.random.default_rng(seed)
+    start = tables.start
+    s_w = w2d.shape[0] // STREAM_ROWS
+    bm = np.full((s_w * STREAM_ROWS // 16, LANES), 0x5A5A5A5A, np.int32)  # garbage
+    bm_bytes = bm.view(np.uint8).reshape(s_w, 8, LANES, 4)
+    exits = np.full(N_STREAMS, -7, np.int64)
+    walked_from = np.full(N_STREAMS, -7, np.int64)  # each stream's checkpoint 0
+    ent = np.full(N_STREAMS, -7, np.int64)
+    state = np.array([-7, -7, 1, 1], np.int64)
+    state[2:4] = 0
+    n = 0
+    while True:
+        entries = np.full(N_STREAMS, start, np.int64) if n == 0 else ent.copy()
+        full_bm, full_ex = ref.np_stride_scan(w2d, tables, entries.reshape(STREAM_ROWS, LANES))
+        full_bytes = full_bm.view(np.uint8).reshape(s_w, 8, LANES, 4)
+        full_ex = full_ex.reshape(-1)
+        for j in rng.permutation(grid):
+            for blk in range(j, KERNEL_TILES, grid):
+                ss = _tile_streams(blk)
+                if n > 0 and (entries[ss] == walked_from[ss]).all():
+                    continue
+                rg, cg = divmod(blk, LANES // 8)
+                lanes = slice(cg * 8, cg * 8 + 8)
+                bm_bytes[:, rg // 2, lanes, rg % 2] = full_bytes[:, rg // 2, lanes, rg % 2]
+                if n == 0 and rg % 2 == 0:
+                    bm_bytes[:, rg // 2, lanes, 2:] = 0
+                exits[ss] = full_ex[ss]
+                walked_from[ss] = entries[ss]
+        word = 2 + (n & 1)
+        for j in rng.permutation(grid):
+            moved = False
+            for t in range(KERNEL_THREADS):
+                for s in range(j * KERNEL_THREADS + t, N_STREAMS, grid * KERNEL_THREADS):
+                    v = start if s == 0 else exits[s - 1]
+                    moved |= v != (start if n == 0 else ent[s])
+                    ent[s] = v
+            if moved:
+                state[word] = 1
+            if j == 0:
+                state[2 + ((n + 1) & 1)] = 0
+        n += 1
+        converged = state[word] == 0
+        if converged or n >= max_rounds:
+            break
+    if not converged:
+        bm[:] = -1
+    return bm, n, bool(converged)
+
+
+def _fixpoint_buffer(kind):
+    buf_size = N_STREAMS * 32  # the scanner's least geometry: 32 word steps, 128-byte strides
+    if kind == "a[0-9]*b":
+        # the in-digits state crosses one stream a walk: 1000-1500 takes 5+ walks
+        buf = np.full(buf_size, ord(" "), dtype=np.uint8)
+        for start, end in ((50, 200), (1000, 1500), (buf_size - 40, buf_size - 1)):
+            buf[start] = ord("a")
+            buf[start + 1 : end] = ord("7")
+            buf[end] = ord("b")
+        return rb"a[0-9]*b", buf
+    rng = np.random.default_rng(5)  # one Q a stream: the guess-defeating automaton
+    buf = rng.choice(np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8), size=buf_size)
+    buf[3::128] = ord("Q")
+    return rb"Q(?:[a-z]{2})*Q", buf
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_fixpoint(kind):
+    """kind's buffer, the two scanners, and the reference's run_t (in
+    interpret mode) jitted once with its round cap as a traced argument:
+    run_t reads its module's MAX_ROUNDS when it traces its while_loop's
+    cond, so setting it to the tracer for that trace gives the same code
+    with the cap as an input, and the round caps share one compile."""
+    import jax
+
+    pattern, buf = _fixpoint_buffer(kind)
+    rs, ps = _scanners(pattern, buf.size)
+
+    def run_t(w2d, max_rounds):
+        keep = ref.MAX_ROUNDS
+        ref.MAX_ROUNDS = max_rounds
+        try:
+            return rs.traceable_run.run_t(w2d)
+        finally:
+            ref.MAX_ROUNDS = keep
+
+    return buf, rs, ps, jax.jit(run_t)
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 24])
+@pytest.mark.parametrize("kind", ["a[0-9]*b", "Q(?:[a-z]{2})*Q"])
+def test_fixpoint_protocol_model_matches_reference(monkeypatch, kind, max_rounds):
+    """The model of the fixpoint kernel's rounds, at the full grid and at
+    grids smaller than the 256 tiles (100, and 7: blocks of several
+    tiles), gives the reference run_t's (bm, walks, converged), in
+    interpret mode, and so does the port's plain fixpoint; the round cap
+    leaves the all-ones bitmap."""
+    monkeypatch.setattr(port, "MAX_ROUNDS", max_rounds)
+    buf, rs, ps, ref_run_t = _ref_fixpoint(kind)
+    assert not rs.window_mode and not ps.window_mode
+    w2d = rs.prep_t(buf)
+    bm, n, conv = ref_run_t(jnp.asarray(w2d), jnp.int32(max_rounds))
+    want = np.asarray(bm), int(n), bool(conv)
+    got = _port_run(ps, buf)
+    assert got[1:] == want[1:] and np.array_equal(got[0], want[0])
+    for grid in (KERNEL_TILES, 100, 7):
+        bm, n, conv = fixpoint_protocol_model(w2d, rs.tables, max_rounds, grid, seed=grid)
+        assert (n, conv) == want[1:], grid
+        assert np.array_equal(bm, want[0]), grid
+    assert want[1] <= max_rounds and (want[2] or (want[0] == -1).all())
+    # the entries move after the first walk here; a[0-9]*b takes 5+ walks
+    assert want[2] == (max_rounds == 24) or (kind != "a[0-9]*b" and max_rounds == 2)
+
+
 @pytest.mark.parametrize(
     "bad",
     [
