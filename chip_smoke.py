@@ -124,8 +124,10 @@ card, and fails (non-zero exit, no result line) if any phase fails:
      one launch per shard, and a literal-free one through the walk's
      counts entry in two launches per shard) equals the same call on
      the CPU, and the literal kernel alone equals its plain version on
-     the card at 1, 16 and 300 literals; then the bench, ``python -m grab_tpu_torch.bench`` as a
-     process at its full sizes (1 GiB headline, 256 MiB and 1 GiB
+     the card at 1, 16, 300 and 1000 literals and 300 literals sharing
+     their first two bytes, in each of its forms; then the bench,
+     ``python -m grab_tpu_torch.bench`` as a process at its full sizes
+     (1 GiB headline, 256 MiB and 1 GiB
      stacks): exit 0, the headline one B1 launch within 1.05 of the run's
      measured roofline, each secondary metric once, finite, not suspect,
      every kernel but B7, W1 and W2 launched; and the dry run
@@ -2320,34 +2322,52 @@ def phase_golden(torch, np, rng):
     return res
 
 
-# the least int32 operations a linear compare per key needs, per
-# position and key: two LOP3s ((window ^ value) & mask, one per half),
-# the OR of the halves, one unsigned-min accumulate (the test for zero
-# made once after the key loop). A scan that buckets the keys by their
-# first bytes needs fewer than K compares a position: this is the bound
-# of the linear compare, not of the function.
+# W2's bound is the function's (w2_bound): the bytes, the shard read once
+# and the counts written once. The function needs a few int32 operations
+# a position with a perfect filter, which stay under the bytes at the
+# card's int32 rate whatever K is. Logged beside it, not used as the
+# bound: this design's own operations on these inputs, per position the
+# pair test, W2_PAIR_TEST_OPS (per 4 positions a funnel shift and two
+# operations for b0 >> 5, then per position a PRMT for the word index, 3
+# in 4 a shift for b0, a rotate and a funnel shift into the candidate
+# bits: 18 / 4), and per position and key of its pair's bucket
+# W2_OPS_PER_KEY, the least a masked 64-bit compare needs (two LOP3s
+# (window ^ value) & mask, the OR of the halves, an unsigned-min
+# accumulate); and a linear compare of every key at every position,
+# BUF * K * W2_OPS_PER_KEY.
+W2_PAIR_TEST_OPS = 4.5
 W2_OPS_PER_KEY = 4
 
 
 def w2_literal_sets(np, rng):
     """The literal kernel's cases: K = 1, 16 (1-, 3-, 8- and 11-byte
-    literals, a zero-length one and NUL-ending ones) and 300."""
-    def lits(n, lo, hi):
-        return [bytes(rng.integers(33, 127, size=int(rng.integers(lo, hi + 1)),
-                                   dtype=np.uint8)) for _ in range(n)]
+    literals, a zero-length one and NUL-ending ones) and 300; then, from
+    a stream of their own (so the first three stay as they were), 1000
+    and "dense": 300 literals that share their first two bytes, ab."""
+    def lits(n, lo, hi, r=rng):
+        return [bytes(r.integers(33, 127, size=int(r.integers(lo, hi + 1)),
+                                 dtype=np.uint8)) for _ in range(n)]
 
     k16 = [b"q", b"fox", b"abcdefgh", b"needle-in-a", b"", b"ab\x00", b"xyz\x00\x00",
            b"\x00\x00\x00"] + lits(8, 3, 11)
-    return {"K1": [b"fooxyzzbar"], "K16": k16, "K300": lits(300, 3, 11)}
+    sets = {"K1": [b"fooxyzzbar"], "K16": k16, "K300": lits(300, 3, 11)}
+    r13 = np.random.default_rng(SEED + 13)
+    sets["K1000"] = lits(1000, 3, 11, r13)
+    sets["dense"] = list(dict.fromkeys(b"ab" + x for x in lits(400, 1, 9, r13)))[:300]
+    return sets
 
 
-def w2_buffer(np, rng, lits):
+def w2_buffer(np, rng, lits, dense=False):
     """32 MiB of printable text with NUL bytes sprinkled, every literal
     planted at random spots and across 512-byte block edges, and the
     shard's last bytes the head of a NUL-ending or short literal (a hit
-    against the zero tail)."""
+    against the zero tail). ``dense``: every 4 bytes of the text start
+    with ab, so a quarter of the positions reach the shared pair's
+    bucket, before the literals are planted."""
     buf = rng.integers(32, 127, size=BUF, dtype=np.uint8)
     buf[rng.integers(0, BUF, size=2000)] = 0
+    if dense:
+        buf[0::4], buf[1::4] = ord("a"), ord("b")
     for i, lit in enumerate(lits * max(1, 600 // len(lits))):
         if lit:
             pos = int(rng.integers(0, BUF - 16)) if i % 2 else 512 * (i + 1) - len(lit) // 2
@@ -2356,6 +2376,28 @@ def w2_buffer(np, rng, lits):
                 lits[0])
     buf[BUF - len(tail) :] = np.frombuffer(tail, np.uint8)
     return buf
+
+
+def w2_bound(np, buf, keys, n_counts, rate):
+    """W2's bound on this buffer (ms): the bytes (the shard read once,
+    the counts written once). Beside it, this design's operations on
+    these inputs (W2_PAIR_TEST_OPS a position, W2_OPS_PER_KEY a position
+    and key of its pair's bucket, counted from the buffer: a position
+    whose first byte starts a 0- or 1-byte key is a match outright) and a
+    linear compare's. → (bound ms, bucket compares, the design's
+    operations ms, the linear compare's operations ms)."""
+    long_ = np.array([n >= 2 for n in keys.lengths])
+    pairs = (keys.value[long_] & np.uint64(0xFFFF)).astype(np.int64)
+    size = np.bincount(pairs, minlength=65536)
+    pos = buf.astype(np.int64)
+    pos[:-1] |= buf[1:].astype(np.int64) << 8  # the last byte pairs with the zero tail
+    short = np.zeros(256, bool)
+    short[(keys.value[~long_] & np.uint64(0xFF)).astype(np.int64)] = True
+    compares = int(size[pos][~short[buf]].sum())
+    bytes_ms = (buf.size + n_counts * 4) / HBM_BYTES_PER_S * 1e3
+    design_ms = (buf.size * W2_PAIR_TEST_OPS + compares * W2_OPS_PER_KEY) / rate * 1e3
+    linear_ms = buf.size * len(keys.lengths) * W2_OPS_PER_KEY / rate * 1e3
+    return bytes_ms, compares, design_ms, linear_ms
 
 
 def phase_byte_scan(torch, np, rng, rate):
@@ -2367,9 +2409,11 @@ def phase_byte_scan(torch, np, rng, rate):
     the pattern without a literal the walk's counts entry
     (csrc/dfa_walk.cu) in two launches per shard and no literal kernel.
     Then the literal kernel alone against its plain version on the
-    card, bit for bit, at K = 1, 16 and 300 (w2_literal_sets), and its
-    time. → (results, the counts entry's launches, the literal kernel's
-    launches, its cases)."""
+    card, bit for bit, at K = 1, 16, 300, 1000 and dense
+    (w2_literal_sets), in the form the host chooses and in each other
+    form that takes the keys (forced), and their times beside W2's
+    bound, the bytes (w2_bound). → (results, the counts entry's launches, the
+    literal kernel's launches, its cases)."""
     from grab_tpu_torch.ops import dfa_scan as ds
     from grab_tpu_torch.ops import literal_scan as ls
     from grab_tpu_torch.parallel.scan_step import make_sharded_scan
@@ -2417,29 +2461,41 @@ def phase_byte_scan(torch, np, rng, rate):
     cases = []
     for label, lits in w2_literal_sets(np, rng).items():
         keys = ls.LiteralKeys(lits)
-        buf = torch.from_numpy(w2_buffer(np, rng, lits)).to(dev)
-        got = ls.literal_block_counts(buf, keys, 512)
+        buf_np = w2_buffer(np, rng, lits, dense=label == "dense")
+        buf = torch.from_numpy(buf_np).to(dev)
         want = ls.literal_block_counts_torch(buf, keys, 512)
-        torch.cuda.synchronize()
-        check(got.dtype == torch.int32 and torch.equal(got, want),
-              f"literal kernel {label}: counts != plain on the card")
-        check(int(got[-1]) > 0, f"literal kernel {label}: no hit in the shard's last block")
         ring = [buf] + [buf.clone() for _ in range(3)]
-        ms = time_cuda(torch, lambda i: ls.literal_block_counts(ring[i % 4], keys, 512), 20)
+        forms = [keys.form] + [f for f in ls.FORMS if f != keys.form
+                               and (f == "table" or len(lits) <= ls.SWAR_MAX)]
+        form_ms = {}
+        for form in forms:
+            got = ls.literal_block_counts(buf, keys, 512, form=form)
+            torch.cuda.synchronize()
+            check(ls.literal_block_counts.form == form, f"literal kernel {label}: ran "
+                  f"{ls.literal_block_counts.form}, not {form}")
+            check(got.dtype == torch.int32 and torch.equal(got, want),
+                  f"literal kernel {label} ({form}): counts != plain on the card")
+            form_ms[form] = time_cuda(
+                torch, lambda i: ls.literal_block_counts(ring[i % 4], keys, 512, form=form), 20)
+        check(int(want[-1]) > 0, f"literal kernel {label}: no hit in the shard's last block")
         plain_ms = time_cuda(torch, lambda i: ls.literal_block_counts_torch(ring[i % 4], keys,
                                                                              512), 2, warmup=1)
         dst = torch.empty_like(buf)
         copy_ms = time_cuda(torch, lambda i: dst.copy_(ring[i % 4]), 20)
-        bytes_ms = (BUF + got.numel() * 4) / HBM_BYTES_PER_S * 1e3
-        ops_ms = BUF * len(lits) * W2_OPS_PER_KEY / rate * 1e3
-        cases.append({"case": label, "k": len(lits), "candidates": int(got.sum()),
+        bound_ms, compares, design_ms, linear_ms = w2_bound(np, buf_np, keys, want.numel(),
+                                                            rate)
+        ms = form_ms[keys.form]
+        cases.append({"case": label, "k": len(lits), "candidates": int(want.sum()),
+                      "form": keys.form, "form_ms": form_ms, "bucket_compares": compares,
                       "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "copy_ms": copy_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                      "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "library_ms": None})
-        log(f"literal kernel == plain on the card: {label} ({int(got.sum())} candidates): "
-            f"{ms:.4f} ms, plain {plain_ms:.2f} ms, d2d copy {copy_ms:.4f} ms, bound "
-            f"{max(bytes_ms, ops_ms):.4f} ms ({cases[-1]['bound_by']})")
+                      "bound_ms": bound_ms, "bound_by": "bytes", "design_ops_ms": design_ms,
+                      "linear_ops_ms": linear_ms, "library_ms": None})
+        log(f"literal kernel == plain on the card: {label} ({int(want.sum())} candidates, "
+            f"{keys.tables.n_pairs} pairs, {compares} bucket compares): "
+            + ", ".join(f"{f} {t:.4f} ms" for f, t in form_ms.items())
+            + f" (host's choice {keys.form}), plain {plain_ms:.2f} ms, d2d copy "
+            f"{copy_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes; {100 * bound_ms / ms:.1f}%), "
+            f"this design's operations {design_ms:.4f} ms, a linear compare's {linear_ms:.4f})")
         del ring, dst
     return res, launches, lit_launches, cases
 
@@ -2869,7 +2925,8 @@ def main() -> int:
         # phase_byte_scan (and the dry run), not by a CLI route
         "literal": row("literal_block_counts", "grab_tpu_torch/csrc/literal_scan.cu",
             "grab_tpu/ops/literal_scan.py:40", lit_launches, litres, litres[0],
-            ("case", "k", "candidates") + common + ("ops_bound_ms",)),
+            ("case", "k", "candidates", "form", "form_ms", "bucket_compares") + common
+            + ("design_ops_ms", "linear_ops_ms")),
         "walk": row("dfa_scan_bitmap", "grab_tpu_torch/csrc/dfa_walk.cu",
             "grab_tpu/ops/dfa_scan.py:46",
             sum(r["launches"]["walk"] for r in route_runs), wres, wres[1],

@@ -2,9 +2,9 @@
 """Times kernels of the grab_tpu_torch port on one CUDA card, in the
 checkout it runs from: the strided-DFA walk (B2), the fused ensemble
 (B6), the alphabet runs (B3), the class sequences (B4), the XOR filter
-(B5) and the last-resort DFA walk (W1).
+(B5), the last-resort DFA walk (W1) and the literal byte step (W2).
 
-    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor|walk|fixpoint]
+    python3 kernel_ab.py [stride|fused|both|alpha|seq|xor|walk|fixpoint|literal|sass]
 
 Run it from the root of two checkouts in turns (A, B, B, A) on one
 card, one after the other, to compare two versions of the kernels: both
@@ -34,7 +34,19 @@ B2's threading fixpoint (``StrideDfaScanner.run_t``) of
 ``.{0,2}(?:[0-9a-zA-Z]{4})+`` and ``a[0-9]*b`` on 32 MiB buffers born
 transposed (chip_smoke.phase_stride_scanner's, 4 distinct copies), the
 better of two runs of 20 calls, beside the profiler's device ms per
-call by kernel name, the walks run and the launches a call makes.
+call by kernel name, the walks run and the launches a call makes;
+``literal`` W2 (``literal_block_counts``) at chip_smoke.py's
+w2_literal_sets (K1, K16, K300, K1000, dense: the sets and buffers of
+the chip_smoke.py beside this script, so both checkouts get the same
+inputs) over 4 distinct 32 MiB buffers a case, the better of two runs
+of 40 launches, in the form the host chooses and, in a checkout whose
+wrapper takes form=, in each form forced, then both forms at 1-5
+literals of 3-11 bytes on text (the SWAR form's side of the
+crossover that sets SWAR_MAX); ``sass`` builds the checkout's
+csrc/literal_scan.cu with ``nvcc -cubin -Xptxas -v`` (registers,
+spills) and counts each kernel's SASS instructions with ``cuobjdump
+-sass``: in all, and per loop (a backward branch), each loop's own
+(nested loops left out) by opcode.
 """
 
 import importlib.util
@@ -275,6 +287,87 @@ def fixpoint_times(rng, dev):
     return res
 
 
+def literal_times(rng, dev):
+    """W2 per case (and per form where the wrapper takes form=); → {label: ms}."""
+    import inspect
+
+    from grab_tpu_torch.ops import literal_scan as ls
+
+    smoke = own_smoke()
+    forms = getattr(ls, "FORMS", ()) if "form" in inspect.signature(
+        ls.literal_block_counts).parameters else ()
+    res = {}
+
+    def best(ring, keys, **kw):
+        return min(cs.time_cuda(torch, lambda i: ls.literal_block_counts(
+            ring[i % 4], keys, 512, **kw), 40) for _ in range(2))
+
+    for label, lits in smoke.w2_literal_sets(np, rng).items():
+        keys = ls.LiteralKeys(lits)
+        ring = [torch.from_numpy(smoke.w2_buffer(np, rng, lits, dense=label == "dense")).to(dev)
+                for _ in range(4)]
+        res[label] = best(ring, keys)
+        for form in forms:
+            if form == "table" or len(lits) <= ls.SWAR_MAX:
+                res[f"{label} {form}"] = best(ring, keys, form=form)
+        del ring
+    if forms:
+        lits5 = [bytes(rng.integers(33, 127, size=int(rng.integers(3, 12)), dtype=np.uint8))
+                 for _ in range(ls.SWAR_MAX)]
+        ring = [torch.from_numpy(smoke.w2_buffer(np, rng, lits5)).to(dev) for _ in range(4)]
+        for k in range(1, ls.SWAR_MAX + 1):
+            keys = ls.LiteralKeys(lits5[:k])
+            for form in forms:
+                res[f"crossover K{k} {form}"] = best(ring, keys, form=form)
+    return res
+
+
+def sass_counts():
+    """nvcc -Xptxas -v's lines and, per kernel, SASS instruction counts:
+    in all and per loop (own instructions by opcode)."""
+    import re
+    import subprocess
+    import tempfile
+
+    from grab_tpu_torch import _build
+
+    src = os.path.join(os.getcwd(), "grab_tpu_torch", "csrc", "literal_scan.cu")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "literal_scan.cubin")
+        built = subprocess.run([_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", src, "-o",
+                                cubin], capture_output=True, text=True, timeout=600)
+        if built.returncode:
+            raise RuntimeError(built.stderr)
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+    out = {"ptxas": [l.strip() for l in built.stderr.splitlines()
+                     if "ptxas" in l or "spill" in l],
+           "kernels": {}}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        ins = [(int(m.group(1), 16), m.group(2).strip())
+               for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        addrs = [a for a, _ in ins]
+        loops = sorted({(int(m.group(1), 16), a) for a, t in ins
+                        for m in [re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)]
+                        if m and int(m.group(1), 16) < a}, key=lambda l: l[1] - l[0])
+        rows = []
+        for i, (lo, hi) in enumerate(loops):
+            inner = [l for l in loops[:i] if lo <= l[0] and l[1] <= hi]
+            own = [t for a, t in ins if lo <= a <= hi
+                   and not any(l[0] <= a <= l[1] for l in inner)]
+            ops = {}
+            for t in own:
+                op = re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                ops[op] = ops.get(op, 0) + 1
+            rows.append({"from": hex(lo), "to": hex(hi), "n": sum(lo <= a <= hi for a in addrs),
+                         "own": len(own), "own_by_opcode": dict(sorted(ops.items()))})
+        out["kernels"][name] = {"instructions": len(ins), "loops": rows}
+    return out
+
+
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "both"
     if not torch.cuda.is_available():
@@ -297,6 +390,10 @@ def main() -> int:
         out["walk_ms"] = walk_times(rng, dev)
     if what == "fixpoint":
         out["fixpoint"] = fixpoint_times(rng, dev)
+    if what == "literal":
+        out["literal_ms"] = literal_times(rng, dev)
+    if what == "sass":
+        out["literal_sass"] = sass_counts()
     print("RESULT " + json.dumps(out), flush=True)
     return 0
 

@@ -158,35 +158,126 @@ def test_make_sharded_scan_equal(n_shards, pattern, needle):
         fn(torch.from_numpy(data[:-1]))
 
 
-# -- the literal kernel's keys and window compare (csrc/literal_scan.cu) ----
+# -- the literal kernel's tables, filters and verify (csrc/literal_scan.cu) --
+
+MASK32 = np.uint64(0xFFFFFFFF)
 
 
-def literal_kernel_model(data: np.ndarray, mask: np.ndarray, value: np.ndarray,
-                         block: int = 512) -> np.ndarray:
-    """A numpy model of the kernel: per 512 bytes, lane l holds bytes
-    [16l, 16l + 16) as four little-endian words and takes the next 8 from
-    lane l + 1 (lane 31 from the next 512 bytes, or zero past the end);
-    the window at byte i of the lane is the funnel shift of those words;
-    a position hits when some key's (window & mask) == value; its hits
-    are counted per block. → int32 [N / block]."""
-    n = data.size
-    words = data.view("<u4").reshape(-1, 32, 4).astype(np.uint64)  # [chunks, lanes, 4]
+def lane_words(data: np.ndarray) -> np.ndarray:
+    """uint64 [chunks, 32, 6]: per 512 bytes, lane l's 16 bytes as four
+    little-endian words and the next 8 from lane l + 1 (lane 31 from the
+    next 512 bytes, zero past the end: the reference's zero tail)."""
+    words = data.view("<u4").reshape(-1, 32, 4).astype(np.uint64)
     nxt = np.zeros(words.shape[:2] + (2,), np.uint64)
     nxt[:, :31] = words[:, 1:, :2]
-    nxt[:-1, 31] = words[1:, 0, :2]  # the last chunk's lane 31: the zero tail
-    w = np.concatenate([words, nxt], axis=2)  # [chunks, lanes, 6]
-    hits = np.zeros(words.shape[:2] + (16,), bool)
-    low32 = np.uint64(0xFFFFFFFF)
+    nxt[:-1, 31] = words[1:, 0, :2]
+    return np.concatenate([words, nxt], axis=2)
 
-    def funnel(a, b, r):  # __funnelshift_r(a, b, 8r): the low word of (b:a) >> 8r
-        return ((a | b << np.uint64(32)) >> np.uint64(8 * r)) & low32
 
-    for i in range(16):
-        q, r = divmod(i, 4)
-        lo, hi = funnel(w[..., q], w[..., q + 1], r), funnel(w[..., q + 1], w[..., q + 2], r)
-        win = hi << np.uint64(32) | lo
-        hits[..., i] = ((win[..., None] & mask) == value).any(axis=-1)
-    return hits.reshape(n // block, -1).sum(axis=1).astype(np.int32)
+def funnel_r(lo, hi, s):
+    """__funnelshift_r: the low word of (hi:lo) >> (s mod 32)."""
+    return ((lo | hi << np.uint64(32)) >> (np.asarray(s, np.uint64) & np.uint64(31))) & MASK32
+
+
+def prmt(a, b, sel: int):
+    """PTX prmt.b32 (default mode): byte n of the result is byte sel[n] & 7
+    of (b:a), or that byte's sign replicated when sel[n] & 8."""
+    src = [(x >> np.uint64(8 * j)) & np.uint64(0xFF) for x in (a, b) for j in range(4)]
+    out = np.zeros_like(a)
+    for n in range(4):
+        nib = sel >> 4 * n & 15
+        byte = src[nib & 7]
+        if nib & 8:
+            byte = np.where(byte & np.uint64(0x80), np.uint64(0xFF), np.uint64(0))
+        out |= byte << np.uint64(8 * n)
+    return out
+
+
+def window_at(w, i: int):
+    """The kernel's window_at: the 8 bytes from byte i of each lane."""
+    q, s = divmod(i, 4)
+    return funnel_r(w[..., q], w[..., q + 1], 8 * s) | funnel_r(w[..., q + 1], w[..., q + 2],
+                                                               8 * s) << np.uint64(32)
+
+
+def blob_parts(t):
+    """The table blob's arrays, read at the offsets the kernel reads."""
+    blob = t.blob
+    return (blob[:8192].view("<u4").astype(np.uint64), blob[8192:12288].view("<u2"),
+            blob[12288:12320].view("<u4").astype(np.uint64),
+            blob[t.off_at : t.off_at + 4 * (t.n_pairs + 1)].view("<i4"),
+            blob[t.keys_at :].view("<u8").reshape(-1, 2))
+
+
+def table_hits(w, keys):
+    """The table form on every lane: per position the PRMT word index, the
+    bitmap word, the rotate by b0 and the funnel into the candidate bits
+    (bit 15 - i), then per candidate the first-byte table, the pair's
+    rank and bucket and the masked compare. → hits [chunks, 32]."""
+    bits, ranks, first, off, kv = blob_parts(keys.tables)
+    cand = np.zeros(w.shape[:2], np.uint64)
+    for q in range(4):
+        x, y = w[..., q], funnel_r(w[..., q], w[..., q + 1], 8)
+        h = (x >> np.uint64(5)) & np.uint64(0x07070707)
+        for r in range(4):
+            word = bits[prmt(y, h, r | (4 + r) << 4 | (12 + r) << 8 | (12 + r) << 12)]
+            rot = funnel_r(word, word, x >> np.uint64(8 * r))
+            cand = (cand << np.uint64(1) | rot >> np.uint64(31)) & MASK32
+    hits = np.zeros(w.shape[:2], np.int64)
+    for b in range(16):
+        at = np.nonzero((cand >> np.uint64(b)) & np.uint64(1))
+        win = window_at(w, 15 - b)[at]
+        b0 = (win & np.uint64(0xFF)).astype(np.int64)
+        b1 = ((win >> np.uint64(8)) & np.uint64(0xFF)).astype(np.int64)
+        hit = ((first[b0 >> 5] >> (b0 & 31).astype(np.uint64)) & np.uint64(1)).astype(bool)
+        wi = b1 | (b0 >> 5) << 8
+        below = (np.uint64(1) << ((b0 + 31) & 31).astype(np.uint64)) - np.uint64(1)
+        rank = ranks[wi].astype(np.int64) + np.bitwise_count(bits[wi] & below).astype(np.int64)
+        lo, hi = off[rank].astype(np.int64), off[rank + 1].astype(np.int64)
+        owner = np.repeat(np.arange(win.size), hi - lo)
+        k = lo[owner] + np.arange(owner.size) - np.repeat(np.cumsum(hi - lo) - (hi - lo), hi - lo)
+        match = (win[owner] & kv[k, 0]) == kv[k, 1]
+        hit |= np.bincount(owner[match], minlength=win.size) > 0
+        hits[at] += hit
+    return hits
+
+
+def swar_hits(w, keys):
+    """The SWAR form on every lane: per word and key t = (x ^ c0) | ((y ^
+    c1) & m1), flags (t - 0x01010101) & ~t, the flags packed as the
+    kernel packs them (bit 8r + q: position 4q + r), and every flagged
+    position verified against every key. → hits [chunks, 32]."""
+    k = len(keys.lengths)
+    c0, c1, m1 = keys.swar[:60].view("<u4").reshape(3, 5).astype(np.uint64)
+    mask, value = keys.swar[64:].view("<u8").reshape(2, 5)
+    cand = np.zeros(w.shape[:2], np.uint64)
+    for q in range(4):
+        x, y = w[..., q], funnel_r(w[..., q], w[..., q + 1], 8)
+        f = np.zeros_like(x)
+        for j in range(k):
+            t = (x ^ c0[j]) | ((y ^ c1[j]) & m1[j])
+            f |= ((t - np.uint64(0x01010101)) & MASK32) & ~t
+        cand |= ((f >> np.uint64(7)) & np.uint64(0x01010101)) << np.uint64(q)
+    hits = np.zeros(w.shape[:2], np.int64)
+    for b in (8 * r + q for r in range(4) for q in range(4)):
+        at = np.nonzero((cand >> np.uint64(b)) & np.uint64(1))
+        win = window_at(w, 4 * (b & 7) + (b >> 3))[at]
+        hits[at] += ((win[:, None] & mask[:k]) == value[:k]).any(axis=1)
+    return hits
+
+
+def literal_kernel_model(data: np.ndarray, keys, form: str, block: int = 512) -> np.ndarray:
+    """A numpy model of the kernel in one form ("table" or "swar"), lane by
+    lane as the warp holds the bytes. → int32 [N / block]."""
+    w = lane_words(data)
+    hits = table_hits(w, keys) if form == "table" else swar_hits(w, keys)
+    return hits.reshape(data.size // block, -1).sum(axis=1).astype(np.int32)
+
+
+def _text_lits(n, seed, lo, hi):
+    rng = np.random.default_rng(seed)
+    return [bytes(rng.integers(33, 127, size=int(rng.integers(lo, hi + 1)), dtype=np.uint8))
+            for _ in range(n)]
 
 
 W2_SETS = {  # 1-, 3-, 8- and 11-byte literals, a zero-length and NUL-ending ones
@@ -195,6 +286,13 @@ W2_SETS = {  # 1-, 3-, 8- and 11-byte literals, a zero-length and NUL-ending one
             b"\x00\x00\x00"] + [b"lit%02d-xy" % i for i in range(8)],
     "K300": [bytes(np.random.default_rng(i).integers(33, 127, size=1 + i % 11, dtype=np.uint8))
              for i in range(300)],
+}
+W2_MORE = {  # the redesign's own cases, on the buffers of w2_case_data
+    "K1000": _text_lits(1000, 1000, 2, 11),
+    "dense": list(dict.fromkeys(b"ab" + x for x in _text_lits(330, 301, 1, 9)))[:300],
+    "short": [b"", b"q", b"~", b"\n", b"\xff"],  # capped lengths 0 and 1 only
+    "binary": [b"\x00\xff", b"\xff\xff\x00", b"\x00\x00\x00", b"\xffab", b"\xff"],
+    "zeros": [b"\x00\x00\x00\x00", b"ab", b"\x00a"],
 }
 
 
@@ -214,21 +312,118 @@ def w2_data(lits, n, seed):
     return data
 
 
-@pytest.mark.parametrize("case", sorted(W2_SETS))
-def test_literal_kernel_model_equals_reference(case):
-    """The host's (mask, value) keys and the model of the kernel's window
-    compare give the reference literal_scan_bitmap's block counts."""
-    lits = W2_SETS[case]
-    n = 16 << 10
+def w2_case_data(case, n):
+    """The model's buffer of a case: w2_data's text, but for "dense" text
+    whose every 4 bytes start with ab (the 300 keys' shared pair), for
+    "binary" random bytes with runs of 0x00 and 0xFF, for "zeros" zeros."""
+    lits = {**W2_SETS, **W2_MORE}[case]
+    if case == "zeros":
+        return np.zeros(n, np.uint8)
     data = w2_data(lits, n, len(lits))
+    rng = np.random.default_rng(n + len(lits))
+    if case == "dense":
+        data[0::4], data[1::4] = ord("a"), ord("b")
+        for i, lit in enumerate(lits[:64]):
+            pos = 512 * (i % (n // 512)) + 510 - 4 * (i % 3)
+            data[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)[: n - pos]
+    elif case == "binary":
+        data = rng.integers(0, 256, size=n, dtype=np.uint8)
+        for pos, run in zip(rng.integers(0, n - 40, size=60), rng.integers(1, 40, size=60)):
+            data[pos : pos + run] = 0xFF if pos % 2 else 0
+        for i, lit in enumerate(lits * 4):
+            pos = 512 * (i + 1) - len(lit) // 2
+            data[pos : pos + len(lit)] = np.frombuffer(lit, np.uint8)
+        data[-2:] = 0xFF  # \xff\xff\x00 against the zero tail
+    return data
+
+
+def ref_block_counts(lits, data):
+    """The reference's literal_scan_bitmap (run op by op: its jit would
+    compile a K-literal graph) and bitmap_block_counts."""
+    mat, lens = ref_ls.literal_matrix(lits)
+    with jax.disable_jit():
+        bm = ref_ls.literal_scan_bitmap(jnp.asarray(mat), tuple(int(x) for x in lens),
+                                        jnp.asarray(data))
+    return np.asarray(ref_dfa.bitmap_block_counts(bm, 512))
+
+
+@pytest.mark.parametrize("case", sorted(W2_SETS) + sorted(W2_MORE))
+def test_literal_kernel_model_equals_reference(case):
+    """The host's tables and the model of the kernel, in the table form
+    and (up to 5 keys) the SWAR form, give the reference
+    literal_scan_bitmap's block counts."""
+    lits = {**W2_SETS, **W2_MORE}[case]
+    n = 16 << 10
+    data = w2_case_data(case, n)
     keys = port_ls.LiteralKeys(lits)
     assert keys.mask.dtype == keys.value.dtype == np.uint64 and keys.mask.shape == (len(lits),)
-    want = np.asarray(ref_dfa.bitmap_block_counts(
-        jnp.asarray(ref_ls.np_literal_scan_bitmap(lits, data)), 512))
-    got = literal_kernel_model(data, keys.mask, keys.value)
-    assert np.array_equal(got, want) and want[-1] > 0
-    if case == "K16":  # the zero-length literal hits every NUL byte
+    want = ref_block_counts(lits, data)
+    forms = ["table"] + (["swar"] if len(lits) <= port_ls.SWAR_MAX else [])
+    for form in forms:
+        got = literal_kernel_model(data, keys, form)
+        assert np.array_equal(got, want), form
+    assert want[-1] > 0
+    if case in ("K16", "short"):  # the zero-length literal hits every NUL byte
         assert want.sum() >= int((data == 0).sum())
+    if case == "dense":  # a quarter of the positions reach the 300-key bucket
+        assert keys.tables.n_pairs == 1 and want.sum() >= 64
+
+
+@pytest.mark.parametrize("case", sorted(W2_SETS) + sorted(W2_MORE))
+def test_literal_tables_invariants(case):
+    """Each key of capped length >= 2 sits in exactly its first pair's
+    bucket, which rank + offset find; the bitmap holds exactly those
+    pairs and the rows of the first-byte table's bytes; the short keys'
+    bytes are in the first-byte table; the ranks count the set bits
+    before each word."""
+    lits = {**W2_SETS, **W2_MORE}[case]
+    keys = port_ls.LiteralKeys(lits)
+    t = keys.tables
+    bits, ranks, first, off, kv = blob_parts(t)
+    present = np.unpackbits(bits.astype("<u4").view(np.uint8), bitorder="little").astype(bool)
+    first_set = np.unpackbits(first.astype("<u4").view(np.uint8), bitorder="little").astype(bool)
+    short = [i for i, n in enumerate(keys.lengths) if n <= 1]
+    long_ = [i for i, n in enumerate(keys.lengths) if n >= 2]
+    assert sorted(t.long_keys.tolist()) == long_ and off[0] == 0 and off[-1] == len(long_)
+    assert np.array_equal(np.flatnonzero(first_set),
+                          sorted({lits[i][:1][0] if lits[i] else 0 for i in short}))
+    assert t.n_pairs == int(present.sum()) and np.all(np.diff(off) >= 0)
+    popc = present.reshape(2048, 32).sum(axis=1)
+    assert ranks[0] == 0 and np.array_equal(ranks[1:], np.cumsum(popc)[:-1])
+    want = {(lits[i][0], lits[i][1]) for i in long_}
+    want |= {(b, x) for b in np.flatnonzero(first_set).tolist() for x in range(256)}
+    word, bit = port_ls.pair_slot([p[0] for p in want], [p[1] for p in want])
+    slots = np.zeros(65536, bool)
+    slots[word * 32 + bit] = True
+    assert np.array_equal(slots, present)
+    for i in long_:
+        wd, bt = port_ls.pair_slot(lits[i][0], lits[i][1])
+        rank = int(ranks[wd]) + int(present[wd * 32 : wd * 32 + bt].sum())
+        bucket = t.long_keys[off[rank] : off[rank + 1]].tolist()
+        assert bucket.count(i) == 1 and (t.long_keys == i).sum() == 1
+        j = off[rank] + bucket.index(i)
+        assert (kv[j, 0], kv[j, 1]) == (keys.mask[i], keys.value[i])
+        assert all(lits[m][:2] == lits[i][:2] for m in bucket)
+    assert (keys.form == "swar") == (len(lits) <= port_ls.SWAR_MAX)
+    assert t.blob.size % 16 == 0 and t.off_at % 16 == 0 and t.keys_at % 16 == 0
+
+
+def test_literal_block_counts_form_keyword():
+    """form= forces either form; on a CPU tensor both give the plain
+    counts, and a form that cannot take the keys raises."""
+    lits = W2_SETS["K16"]
+    keys = port_ls.LiteralKeys(lits)
+    data = torch.from_numpy(w2_data(lits, 4096, 9))
+    want = port_ls.literal_block_counts_torch(data, keys, 512)
+    assert torch.equal(port_ls.literal_block_counts(data, keys, 512, form="table"), want)
+    with pytest.raises(ValueError):
+        port_ls.literal_block_counts(data, keys, 512, form="swar")  # 16 keys > SWAR_MAX
+    with pytest.raises(ValueError):
+        port_ls.literal_block_counts(data, keys, 512, form="linear")
+    one = port_ls.LiteralKeys([b"fox"])
+    assert one.form == "swar" and one.swar.shape == (144,)
+    assert torch.equal(port_ls.literal_block_counts(data, one, 512, form="table"),
+                       port_ls.literal_block_counts(data, one, 512, form="swar"))
 
 
 def test_literal_keys_cover_max_length_one():

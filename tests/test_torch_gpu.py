@@ -313,11 +313,22 @@ def test_stride_fixpoint_non_synchronising_matches_plain(cuda):
         assert (int(n), bool(conv)) == (n_p, conv_p) and torch.equal(bm.cpu(), bm_p)
 
 
+def _text_literals(k: int, seed: int, lead: bytes = b""):
+    rng = np.random.default_rng(seed)
+    lits = [lead + bytes(rng.integers(33, 127, size=int(rng.integers(1 if lead else 3, 10)),
+                                      dtype="u1")) for _ in range(k + k // 3)]
+    return list(dict.fromkeys(lits))[:k]
+
+
 LITERAL_CASES = {  # 1-, 3-, 8- and 11-byte literals, a zero-length and NUL-ending ones
     "K1": [b"fooxyzzbar"],
+    "K5": [b"", b"q", b"ab\x00", b"xyz\x00\x00", b"needle-in-a"],  # the most the SWAR form takes
     "K16": [b"q", b"fox", b"abcdefgh", b"needle-in-a", b"", b"ab\x00", b"xyz\x00\x00",
             b"\x00\x00\x00"] + [b"lit%02d-xy" % i for i in range(8)],
     "K300": [b"k%03d" % i + b"xyzw"[: i % 5] for i in range(300)],
+    "K1000": _text_literals(1000, 1000),
+    "K3000": _text_literals(3000, 3000),  # a 64 KiB table: buckets read from global memory
+    "dense": _text_literals(300, 300, b"ab"),  # 300 literals that share their first two bytes
 }
 
 
@@ -325,9 +336,11 @@ LITERAL_CASES = {  # 1-, 3-, 8- and 11-byte literals, a zero-length and NUL-endi
 @pytest.mark.parametrize("case", sorted(LITERAL_CASES))
 def test_literal_block_counts_kernel_matches_plain(cuda, case):
     """W2 (csrc/literal_scan.cu, one launch) == the plain scan and block
-    counts on the card at 32 MiB: planted literals across block edges,
-    NUL bytes (the zero-length literal's hits), and a hit in the shard's
-    last bytes against the zero tail."""
+    counts on the card at 32 MiB, in every form that takes the keys
+    (forced by form=): planted literals across block edges, NUL bytes
+    (the zero-length literal's hits), a hit in the shard's last bytes
+    against the zero tail; "dense": text whose every 4 bytes start with
+    the 300 literals' shared pair."""
     from grab_tpu_torch.ops import literal_scan as ls
 
     lits = LITERAL_CASES[case]
@@ -335,21 +348,26 @@ def test_literal_block_counts_kernel_matches_plain(cuda, case):
     rng = np.random.default_rng(len(lits))
     buf = rng.integers(32, 127, size=n, dtype=np.uint8)
     buf[rng.integers(0, n, size=500)] = 0
+    if case == "dense":
+        buf[0::4], buf[1::4] = ord("a"), ord("b")
     for i in range(600):
         lit = lits[i % len(lits)]
         pos = int(rng.integers(0, n - 16)) if i % 2 else BLOCK * (i + 1) - len(lit) // 2
         buf[pos : pos + len(lit)] = np.frombuffer(lit, dtype=np.uint8)
-    tail = b"ab" if case == "K16" else lits[-1]
+    tail = b"ab" if case in ("K5", "K16") else lits[-1]
     buf[n - len(tail) :] = np.frombuffer(tail, dtype=np.uint8)
     keys = ls.LiteralKeys(lits)
     data = torch.from_numpy(buf).to(cuda)
-    before = ls.literal_block_counts.launches
-    got = ls.literal_block_counts(data, keys, BLOCK)
-    assert ls.literal_block_counts.launches == before + 1
     want = ls.literal_block_counts_torch(data, keys, BLOCK)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert int(got[-1]) > 0 and int(got.sum()) >= 600
+    forms = ["table"] + (["swar"] if len(lits) <= ls.SWAR_MAX else [])
+    for form in forms:
+        before = ls.literal_block_counts.launches
+        got = ls.literal_block_counts(data, keys, BLOCK, form=form)
+        assert ls.literal_block_counts.launches == before + 1
+        assert ls.literal_block_counts.form == form
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), form
+    assert int(want[-1]) > 0 and int(want.sum()) >= 600
 
 
 @pytest.mark.gpu
@@ -372,8 +390,12 @@ def test_literal_block_counts_kernel_wider_blocks(cuda, block):
     data = torch.from_numpy(buf).to(cuda)
     got = ls.literal_block_counts(data, keys, block)
     want = ls.literal_block_counts_torch(data, keys, block)
+    swar_keys = ls.LiteralKeys(LITERAL_CASES["K5"])
+    got5 = ls.literal_block_counts(data, swar_keys, block, form="swar")
+    want5 = ls.literal_block_counts_torch(data, swar_keys, block)
     torch.cuda.synchronize()
     assert got.shape == (n // block,) and torch.equal(got, want) and int(want.sum()) > 400
+    assert torch.equal(got5, want5) and int(want5.sum()) > 300
 
 
 @pytest.mark.gpu
@@ -387,6 +409,9 @@ def test_literal_block_counts_refuses_bad_input_on_card(cuda):
         ls.literal_block_counts(buf[1 : 1 + 4096], keys, BLOCK)
     with pytest.raises(ValueError):  # a block the kernel does not take
         ls.literal_block_counts(buf[:4096], keys, 256)
+    with pytest.raises(ValueError):  # 16 keys: more than the SWAR form takes
+        ls.literal_block_counts(buf[:4096], ls.LiteralKeys(LITERAL_CASES["K16"]), BLOCK,
+                                form="swar")
     assert ls.literal_block_counts.launches == before
 
 
