@@ -515,18 +515,20 @@ def phase_main_path(torch, np, rng, tmp):
     return tree, tree_bytes, n_files, runs, launches
 
 
-def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
+def phase_e2e(torch, np, tree, argv=None, counter="corewords"):
     """A miss (or near-miss) scan over the tree: end-to-end rate, then a
     profiled run for the device's busy and idle share. ``counter``: the
     kernel (or kernels, space-separated) that the scan must launch. The
     Engine's construction (pattern compile, tables) is timed apart: it
-    is part of every wall."""
+    is part of every wall. The engines record their spans, so the logged
+    stats split the scan by host stage."""
     from grab_tpu_torch import cli
     from grab_tpu_torch.engine import Engine
 
     engines, build_s = [], []
 
     def keep(pats, cfg):
+        cfg.record = True
         t0 = time.perf_counter()
         e = Engine(pats, cfg)
         build_s.append(time.perf_counter() - t0)
@@ -550,8 +552,6 @@ def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
     gbps = [nbytes / w / 1e9 for w in walls]
     log(f"scan {argv[:-1]}: {nbytes} bytes, {len(out)} B of output, walls {walls} s (Engine "
         f"built in {build_s[1:4]} s of them) → {gbps} GB/s; batches={st.device_batches}, stats: {st.summary()}")
-
-    host = host_breakdown(np, tree, st.device_batches) if breakdown else None
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -606,56 +606,9 @@ def phase_e2e(torch, np, tree, argv=None, counter="corewords", breakdown=True):
         "engine_build_s": build_s[1:4],
         "device_batches": st.device_batches, "stats": st.summary(),
         "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-        "idle_share": idle, "device_ms_by_name": by_name, "host": host,
+        "idle_share": idle, "device_ms_by_name": by_name,
         "kernel_ms": kernel_ms, "stream_ops": stream_ops,
     }
-
-
-def host_breakdown(np, tree: str, batches: int):
-    """Host stages of the miss scan, each timed alone: the parallel walk,
-    packing plus the pread fill of every batch, and the copy of each
-    batch into pinned staging memory."""
-    import torch
-
-    from grab_tpu_torch.engine import Engine, EngineConfig
-    from grab_tpu_torch.ingest.native import fill_segments
-    from grab_tpu_torch.ingest.packer import BatchPacker
-    from grab_tpu_torch.scan_pipeline import HALO
-
-    eng = Engine(b"zQx##missing##", EngineConfig(device="none"))
-    t0 = time.perf_counter()
-    entries = list(eng._walk_iter(tree))
-    walk_s = time.perf_counter() - t0
-    packer = BatchPacker(BUF, 512, HALO)
-
-    def fill(batch):
-        jobs = [(entries[s.file_idx][0].encode(), s.file_off, s.buf_off, s.length)
-                for s in batch.segments]
-        fill_segments(batch.buf, jobs, 8)
-
-    t0 = time.perf_counter()
-    n = 0
-    for idx, (_path, size) in enumerate(entries):
-        for batch in packer.feed_size(idx, size):
-            fill(batch)
-            n += 1
-    final = packer.finish()
-    if final is not None:
-        fill(final)
-        n += 1
-    fill_s = time.perf_counter() - t0
-    src = np.ones(BUF + 4096, dtype=np.uint8)
-    pinned = torch.empty(BUF + 4096, dtype=torch.uint8, pin_memory=True)
-    t0 = time.perf_counter()
-    for _ in range(batches):
-        np.copyto(pinned.numpy(), src)
-    stage_s = time.perf_counter() - t0
-    out = {"walk_s": walk_s, "entries": len(entries), "pack_fill_s": fill_s,
-           "batches": n, "stage_copy_s": stage_s, "stage_batches": batches}
-    log(f"host stages alone: walk {walk_s:.3f}s ({len(entries)} files), pack+fill "
-        f"{fill_s:.3f}s ({n} batches), pinned staging copies {stage_s:.3f}s "
-        f"({batches} x 32 MiB)")
-    return out
 
 
 # -- B4: class sequences ------------------------------------------------------
@@ -1842,7 +1795,8 @@ def phase_routes(torch, np, trees, refs, tmp):
         engines = []
 
         def keep(pats, cfg, r=r):
-            e = Engine(pats, dataclasses.replace(cfg, **r["cfg"]))
+            # record: the logged stats' walk= and replay= are the spans
+            e = Engine(pats, dataclasses.replace(cfg, record=True, **r["cfg"]))
             engines.append(e)
             return e
 
@@ -2837,26 +2791,25 @@ def main() -> int:
             e2e = phase_e2e(torch, np, tree)
             gbulk = trees["gbulk"][0]
             route_e2e = [
-                phase_e2e(torch, np, tree, ["-r", "[A-Z]{6}[0-9]{6}", tree], "stride", False),
-                phase_e2e(torch, np, tree, ["-r", "\t[0-9]+\t", tree], "classseq", False),
-                phase_e2e(torch, np, tree, ["-r", ".{0,2}[a-z ]{11}", tree], "stride", False),
+                phase_e2e(torch, np, tree, ["-r", "[A-Z]{6}[0-9]{6}", tree], "stride"),
+                phase_e2e(torch, np, tree, ["-r", "\t[0-9]+\t", tree], "classseq"),
+                phase_e2e(torch, np, tree, ["-r", ".{0,2}[a-z ]{11}", tree], "stride"),
                 phase_e2e(torch, np, gbulk, ["-E", "-r", ".{0,2}(?:[0-9a-zA-Z]{4})+", gbulk],
-                          "fixpoint", False),
-                phase_e2e(torch, np, tree, ["-r", ".{0,2}[0-9]{11}", tree], "alpharun", False),
+                          "fixpoint"),
+                phase_e2e(torch, np, tree, ["-r", ".{0,2}[0-9]{11}", tree], "alpharun"),
                 # the last-resort walk: an automaton without a stride plan
-                phase_e2e(torch, np, tree, ["-r", NO_PLAN.decode(), tree], "walk", False),
+                phase_e2e(torch, np, tree, ["-r", NO_PLAN.decode(), tree], "walk"),
                 # 100 long literals alone: the split path's one XOR filter
                 phase_e2e(torch, np, tree,
-                          ["-r", "-S", "-H", os.path.join(tmp, "lits100.txt"), tree], "xor",
-                          False),
+                          ["-r", "-S", "-H", os.path.join(tmp, "lits100.txt"), tree], "xor"),
                 # the batches' digit and capital sequences flag nearly every
                 # block of printable text, so their miss scan runs over the
                 # punctuation tree
                 phase_e2e(torch, np, gbulk,
-                          ["-r", "-H", os.path.join(tmp, "batch4.txt"), gbulk], "fused", False),
+                          ["-r", "-H", os.path.join(tmp, "batch4.txt"), gbulk], "fused"),
                 phase_e2e(torch, np, gbulk,
                           ["-r", "-H", os.path.join(tmp, "batchseq.txt"), gbulk],
-                          "fused stride", False),
+                          "fused stride"),
             ]
             gres, one_literal = phase_groups(torch, np, trees, tree, tmp, outs)
             vres = phase_server(torch, np, here, trees, tmp, outs, one_literal)

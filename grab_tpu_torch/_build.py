@@ -24,7 +24,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Sequence
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, "build")
@@ -39,6 +41,24 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-Wall", "-Wextra", "-fPIC", "-shared", "-pthr
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+@dataclass
+class KernelLoads:
+    """Kernel libraries in this process: seconds ``cuda_library`` spent
+    building and loading them, libraries built with nvcc (``build_cuda``),
+    libraries loaded (``cuda_library``). ``--stats`` prints a request's
+    share as the difference of two ``snapshot()``s."""
+
+    seconds: float = 0.0
+    built: int = 0
+    loaded: int = 0
+
+    def snapshot(self) -> Tuple[float, int, int]:
+        return self.seconds, self.built, self.loaded
+
+
+kernel_loads = KernelLoads()
 
 
 class BuildError(RuntimeError):
@@ -113,6 +133,7 @@ def build_cuda(names: Sequence[str], timeout: float = 600.0) -> Dict[str, str]:
             jobs.append((_start(cmd, out), out))
     for (proc, tmp), out in jobs:
         _finish(proc, tmp, out, timeout)
+    kernel_loads.built += len(jobs)
     return paths
 
 
@@ -121,8 +142,11 @@ def cuda_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(build_cuda([name])[name])
             _loaded[name] = lib
+            kernel_loads.loaded += 1
+            kernel_loads.seconds += time.perf_counter() - t0
         return lib
 
 

@@ -32,10 +32,12 @@ README.md:16-31):
           4 KiB-overlap duplicates and no missed chunk-spanning
           matches (the reference's documented limitation,
           README.md:116-119)
-  --stats print scan statistics to stderr (off the parity path)
+  --stats print scan statistics to stderr (off the parity path), with
+          the request's spans (engine.py ScanStats)
   --trace D
           torch.profiler trace of the whole scan, written to
-          D/trace.json (Chrome trace format)
+          D/trace.json (Chrome trace format); the spans are host ranges
+          in it
   --hosts N --pid P --coordinator HOST:PORT, --outdir D
           multi-host mode (BASELINE config 5), recursive only: one
           command per host; host 0 serves the store on HOST:PORT and
@@ -165,10 +167,13 @@ def parse_args(argv: List[str]):
 
 class _TorchTrace:
     """torch.profiler over the scan (CPU, plus CUDA when a card is
-    visible); the Chrome trace goes to ``<directory>/trace.json``."""
+    visible); the Chrome trace goes to ``<directory>/trace.json``, with
+    the request's id as its ``request`` metadata. While it runs the
+    request's spans (``stats``) are also profiler ranges."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, stats):
         self.directory = directory
+        self.stats = stats
         self._prof = None
 
     def __enter__(self):
@@ -180,9 +185,12 @@ class _TorchTrace:
             acts.append(ProfilerActivity.CUDA)
         self._prof = profile(activities=acts)
         self._prof.__enter__()
+        self._prof.add_metadata("request", str(self.stats.request))
+        self.stats.tracing = True
         return self
 
     def __exit__(self, *exc):
+        self.stats.tracing = False
         self._prof.__exit__(*exc)
         os.makedirs(self.directory, exist_ok=True)
         self._prof.export_chrome_trace(os.path.join(self.directory, "trace.json"))
@@ -190,11 +198,13 @@ class _TorchTrace:
 
 
 def main(
-    argv: Optional[List[str]] = None, out=None, err=None, engine_factory=None
+    argv: Optional[List[str]] = None, out=None, err=None, engine_factory=None,
+    request: int = 0,
 ) -> int:
     """CLI entry. ``out`` is a binary writer (default: stdout.buffer),
     ``err`` a text writer (default: stderr), ``engine_factory`` an
-    Engine-compatible constructor."""
+    Engine-compatible constructor, ``request`` the request's id in the
+    --stats line and the trace (the scan server's count)."""
     argv = sys.argv[1:] if argv is None else argv
     prog = "tpugrep"
     # adopt LC_CTYPE like the reference's C runtime: pattern classes
@@ -250,6 +260,7 @@ def main(
         mode=mode,
         n_shards=max(1, opts["cores"]),
         exact=opts["exact"],
+        record=opts["stats"] or bool(opts["trace"]),
     )
 
     if opts["multi"]:
@@ -278,9 +289,10 @@ def main(
     import time
     from contextlib import nullcontext
 
+    engine.stats.request = request
     trace_ctx = nullcontext()
     if opts["trace"]:
-        trace_ctx = _TorchTrace(opts["trace"])
+        trace_ctx = _TorchTrace(opts["trace"], engine.stats)
 
     t0 = time.time()
     nbytes = 0

@@ -37,11 +37,14 @@ from __future__ import annotations
 import mmap
 import os
 import sys
+import time
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
+from grab_tpu_torch import _build
 from grab_tpu_torch.format.emitter import ChunkReplayer, OutputConfig
 from grab_tpu_torch.ingest.walker import walk_files
 from grab_tpu_torch.regex import ast as A
@@ -50,6 +53,7 @@ from grab_tpu_torch.scan_pipeline import (
     HALO,
     CorpusPipeline,
     DeviceScanner,
+    no_span,
     resolve_devices,
 )
 
@@ -338,11 +342,49 @@ class _NeverMatch:
         return None
 
 
+class _Span:
+    """One span of a recording ScanStats: the elapsed perf_counter() is
+    added to its name's total; while the request is traced it is also a
+    torch.profiler range of that name, on the profiler's clock."""
+
+    __slots__ = ("totals", "name", "rf", "t0")
+
+    def __init__(self, totals: Dict[str, float], name: str, traced: bool):
+        self.totals = totals
+        self.name = name
+        self.rf = record_function(name) if traced else None
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        if self.rf is not None:
+            self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        self.totals[self.name] = self.totals.get(self.name, 0.0) + time.perf_counter() - self.t0
+        return False
+
+
+PIPELINE_SPANS = ("pack", "fill", "stage", "launch", "wait", "pull")
+
+
 @dataclass
 class ScanStats:
     """Observability counters (SURVEY §5: the reference has none beyond
     stdout/stderr; these stay off the parity path, surfaced via
-    --stats)."""
+    --stats).
+
+    With ``recording`` (a request with --stats or --trace) ``span(name)``
+    times a stage where it runs: ``compile`` and ``scanner`` in
+    Engine.__init__; inside the scan pipeline, whose main thread they
+    partition, ``walk`` (blocked on the walk), ``pack``, ``fill`` (the
+    pread pool), ``stage`` (into the pinned slot), ``launch`` (queueing
+    copies and kernels), ``wait`` (blocked on the device) and ``pull``
+    (payloads and their fold into files); ``replay`` per replayed file.
+    A span opens per batch or replayed file, never per walked file.
+    Without ``recording`` it returns a shared no-op."""
 
     files_seen: int = 0
     files_pruned: int = 0  # minlength prune, no open (grab.cc:133-135)
@@ -351,9 +393,30 @@ class ScanStats:
     candidate_blocks: int = 0
     clean_files: int = 0  # zero candidates → no host work
     device_batches: int = 0
-    wall_walk: float = 0.0
     wall_scan: float = 0.0
-    wall_replay: float = 0.0
+    recording: bool = False
+    tracing: bool = False  # spans are also profiler ranges (--trace)
+    request: int = 0  # the request's id: the scan server's count
+    spans: Dict[str, float] = field(default_factory=dict)  # name -> seconds
+    pulls: int = 0  # batches whose payloads left the device
+    # hit | miss: the scan server's cache held the scanner, or built it
+    # (set by server._EngineCache); none: not served through that cache
+    scanner: str = "none"
+    cache: Optional[Tuple[int, int]] = None  # the server cache's running (hits, misses)
+    kernel_loads0: Tuple[float, int, int] = (0.0, 0, 0)  # _build.kernel_loads at the start
+
+    def span(self, name: str):
+        if not self.recording:
+            return no_span(name)
+        return _Span(self.spans, name, self.tracing)
+
+    @property
+    def wall_walk(self) -> float:
+        return self.spans.get("walk", 0.0)
+
+    @property
+    def wall_replay(self) -> float:
+        return self.spans.get("replay", 0.0)
 
     def summary(self) -> str:
         def rate(wall: float) -> str:
@@ -373,6 +436,20 @@ class ScanStats:
             f"walk={self.wall_walk:.3f}s "
             f"scan={self.wall_scan:.3f}s{rate(self.wall_scan)} "
             f"replay={self.wall_replay:.3f}s{rate(self.wall_replay)}"
+            + (self._span_fields() if self.recording else "")
+        )
+
+    def _span_fields(self) -> str:
+        t = self.spans.get
+        load_s, built, loaded = (
+            a - b for a, b in zip(_build.kernel_loads.snapshot(), self.kernel_loads0)
+        )
+        return (
+            f" | req={self.request} compile={t('compile', 0.0):.4f}s "
+            f"scanner={self.scanner}:{t('scanner', 0.0):.4f}s "
+            + "".join(f"{k}={t(k, 0.0):.4f}s " for k in PIPELINE_SPANS)
+            + f"pulls={self.pulls} kernel_load={load_s:.4f}s/{built}/{loaded}"
+            + ("" if self.cache is None else f" cache={self.cache[0]}/{self.cache[1]}")
         )
 
 
@@ -397,6 +474,7 @@ class EngineConfig:
     walk_workers: int = 0  # parallel tree-discovery threads
     # (0 = auto: native gt_pwalk with min(16, cores) when available;
     # 1 = force the serial Python walker)
+    record: bool = False  # ScanStats' spans and counters (--stats, --trace)
 
 
 def effective_shards(cfg: EngineConfig) -> int:
@@ -414,23 +492,27 @@ class Engine:
         patterns, mode, buffer size, devices and shard count (the scan
         server's cache), used in place of building one."""
         self.cfg = config or EngineConfig()
+        self.stats = ScanStats(recording=self.cfg.record)
+        if self.cfg.record:
+            self.stats.kernel_loads0 = _build.kernel_loads.snapshot()
         if isinstance(patterns, (str, bytes)):
             patterns = [patterns]
-        self.compiled: CompiledPattern = compile_multi(
-            patterns, literal_mode=(self.cfg.mode == "literal")
-        )
+        with self.stats.span("compile"):
+            self.compiled: CompiledPattern = compile_multi(
+                patterns, literal_mode=(self.cfg.mode == "literal")
+            )
+            self._exact = self._make_exact_matcher()
+            self._line_narrow = not any(
+                A.may_match_newline(t) for t in self.compiled.asts
+            )
         self.err: str = ""
-        self.stats = ScanStats()
-        self._exact = self._make_exact_matcher()
-        self._line_narrow = not any(
-            A.may_match_newline(t) for t in self.compiled.asts
-        )
         self._scanner = scanner
         if self.cfg.device != "none":
             # build the scanner now, so a missing CUDA card raises here
             resolve_devices(self.cfg.device)
             if self._device_usable():
-                self._get_scanner()
+                with self.stats.span("scanner"):
+                    self._get_scanner()
 
     # -- exact engine selection ----------------------------------------
 
@@ -619,21 +701,20 @@ class Engine:
     ) -> int:
         """Scan (path, data) pairs in order through one fixed-shape
         device pipeline; emit reference-grammar output per file."""
-        import time
-
         st = self.stats
+        span = st.span
         if not self._device_usable():
             self._note_host_fallback()
             for path, data in files:
                 st.files_scanned += 1
                 st.bytes_scanned += len(data)
-                t0 = time.monotonic()
-                self._replay(path, data, None, emit)
-                st.wall_replay += time.monotonic() - t0
+                with span("replay"):
+                    self._replay(path, data, None, emit)
             return 0
         scanner = self._get_scanner()
         unbounded = self._dfa_tier_unbounded()
-        pipeline = CorpusPipeline(scanner, no_split=unbounded)
+        pipeline = CorpusPipeline(scanner, no_split=unbounded, span=span)
+        pulls0 = scanner.payload_pulls
         t_last = time.monotonic()
         for path, data, counts in pipeline.run(files):
             now = time.monotonic()
@@ -644,18 +725,17 @@ class Engine:
             if unbounded and len(data) > scanner.buf_size:
                 # spans batches: device flags cannot be trusted across
                 # the boundary for unbounded matches — full exact replay
-                t0 = time.monotonic()
-                self._replay(path, data, None, emit)
-                st.wall_replay += time.monotonic() - t0
+                with span("replay"):
+                    self._replay(path, data, None, emit)
             elif counts.any():
-                t0 = time.monotonic()
-                self._replay(path, data, counts, emit)
-                st.wall_replay += time.monotonic() - t0
+                with span("replay"):
+                    self._replay(path, data, counts, emit)
             else:
                 st.clean_files += 1
             _close_quietly(data)
             t_last = time.monotonic()
         st.device_batches = getattr(pipeline, "batches_run", 0)
+        st.pulls = scanner.payload_pulls - pulls0
         return 0
 
     def scan_corpus_paths(
@@ -670,9 +750,8 @@ class Engine:
         with candidate blocks are opened for the exact replay — the
         disk→HBM stream the reference gets from mmap + page faults
         (grab.cc:137-169), minus any host copy for clean files."""
-        import time
-
         st = self.stats
+        span = st.span
         if not self._device_usable():
             self._note_host_fallback()
             for path, size in entries:
@@ -686,16 +765,16 @@ class Engine:
                     continue
                 st.files_scanned += 1
                 st.bytes_scanned += size
-                t0 = time.monotonic()
-                self._replay(path, data, None, emit)
-                st.wall_replay += time.monotonic() - t0
+                with span("replay"):
+                    self._replay(path, data, None, emit)
                 _close_quietly(data)
                 if on_done is not None:
                     on_done(path)
             return 0
         scanner = self._get_scanner()
         unbounded = self._dfa_tier_unbounded()
-        pipeline = CorpusPipeline(scanner, no_split=unbounded)
+        pipeline = CorpusPipeline(scanner, no_split=unbounded, span=span)
+        pulls0 = scanner.payload_pulls
         t_last = time.monotonic()
         for path, size, counts, err in pipeline.run_paths(entries):
             now = time.monotonic()
@@ -713,26 +792,34 @@ class Engine:
             if unbounded and size > scanner.buf_size:
                 counts = None  # spans batches: force full exact replay
             if counts is None or counts.any():
-                t0 = time.monotonic()
-                try:
-                    data = self._open_data(path, size)
-                except OSError as e:
-                    print(
-                        f"{path}: Engine::scan_file::open: {e.strerror}",
-                        file=sys.stderr,
-                    )
+                with span("replay"):
+                    replayed = self._replay_path(path, size, counts, emit)
+                if not replayed:
                     t_last = time.monotonic()
                     continue
-                self._replay(path, data, counts, emit)
-                _close_quietly(data)
-                st.wall_replay += time.monotonic() - t0
             else:
                 st.clean_files += 1
             if on_done is not None:
                 on_done(path)
             t_last = time.monotonic()
         st.device_batches = getattr(pipeline, "batches_run", 0)
+        st.pulls = scanner.payload_pulls - pulls0
         return 0
+
+    def _replay_path(self, path: str, size: int, counts, emit) -> bool:
+        """Open a candidate file and replay it; False (the error
+        reported) when it cannot be opened."""
+        try:
+            data = self._open_data(path, size)
+        except OSError as e:
+            print(
+                f"{path}: Engine::scan_file::open: {e.strerror}",
+                file=sys.stderr,
+            )
+            return False
+        self._replay(path, data, counts, emit)
+        _close_quietly(data)
+        return True
 
     def scan_data(self, path: str, data: bytes, emit: Callable[[bytes], None]) -> int:
         """Scan one in-memory buffer."""

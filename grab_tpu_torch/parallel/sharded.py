@@ -59,6 +59,16 @@ class ShardedScanner:
         self._tables_on = set()  # devices whose tables are known uploaded
 
     @property
+    def span(self):
+        """The span recorder of the scan in progress, the lanes' own."""
+        return self.lanes[0].span
+
+    @span.setter
+    def span(self, span) -> None:
+        for lane in self.lanes:
+            lane.span = span
+
+    @property
     def payload_pulls(self) -> int:
         """Resolves, over all lanes, that pulled the members' payloads."""
         return sum(l.payload_pulls for l in self.lanes)
@@ -79,7 +89,8 @@ class ShardedScanner:
                 # the members upload their tables at first use, on this
                 # lane's stream: the device's other lanes must not read
                 # them before they have arrived
-                stream.synchronize()
+                with self.span("wait"):
+                    stream.synchronize()
                 self._tables_on.add(lane.device)
         return handles
 
@@ -87,7 +98,8 @@ class ShardedScanner:
         """→ per-batch int32 [buf_size/block] candidate flags, in submit
         order. Every lane's count is awaited first (the waits overlap);
         a clean group then costs its counts and no payload pull."""
-        for _total, _payloads, ready in handles:
-            if ready is not None:
-                ready.synchronize()
+        with self.span("wait"):
+            for _total, _payloads, ready in handles:
+                if ready is not None:
+                    ready.synchronize()
         return [lane.resolve(h) for lane, h in zip(self.lanes, handles)]

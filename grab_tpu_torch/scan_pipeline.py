@@ -33,20 +33,25 @@ device and their decoded flags unioned on the host:
 visible card, or a list of shard devices); ``DeviceScanner.replica``
 puts a built plan on another shard device for parallel/sharded.py.
 
-``CorpusPipeline`` is the reference's, unchanged: its one-deep double
-buffering overlaps host packing of the next batch with the device's
-upload and scan of this one.
+``CorpusPipeline`` is the reference's: its one-deep double buffering
+overlaps host packing of the next batch with the device's upload and
+scan of this one. It pulls the walk a buffer's worth of files at a
+time, so that the request's spans (``engine.ScanStats.span``: walk,
+pack, fill, stage, launch, wait, pull) open per batch, never per file.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+from collections import deque
+from contextlib import nullcontext
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from grab_tpu_torch.ingest.packer import BatchPacker
 from grab_tpu_torch.ops.alpharun import AlphaRunScanner, alpharun_eligible
 from grab_tpu_torch.ops.classseq import ClassSeqScanner, compile_sequences
 from grab_tpu_torch.ops.corewords import LANES, PAD_ROWS, CoreWordScanner
@@ -67,6 +72,15 @@ MAX_KERNEL_LITERALS = 16  # one compare bucket of the core-word kernel
 MAX_LONG_LITERALS = 4  # more 7+-byte literals go to the XOR filter
 MIN_STRIDE_BUF = 1 << 20  # smaller buffers take the last-resort walk
 MAX_DEVICE_STATES = 2048  # larger automata have no device form
+PULL_MAX = 1 << 14  # files the pipeline takes from the walk at a time, at most
+
+_NO_SPAN = nullcontext()
+
+
+def no_span(_name: str):
+    """The span recorder of a scan that records none: one shared no-op
+    context, no clock read, no allocation."""
+    return _NO_SPAN
 
 
 class DeviceUnavailable(RuntimeError):
@@ -151,29 +165,33 @@ class _PinnedUploader:
         self._stream = torch.cuda.Stream(device)
         self._next = 0
 
-    def run(self, fill, fn):
+    def run(self, fill, fn, span):
         """``fill(stagings)`` writes the batch into the free slot's pinned
         uint8 numpy buffers; they are uploaded and ``fn(devs)`` launched
-        on the current stream after the copies."""
+        on the current stream after the copies. ``span``: the request's
+        recorder (wait for the slot, stage, launch)."""
         i = self._next
         self._next = (i + 1) % self.DEPTH
         if self._copied[i] is not None:
-            self._copied[i].synchronize()
-        fill([h.numpy() for h in self._host[i]])
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._stream):
-            if self._consumed[i] is not None:
-                self._stream.wait_event(self._consumed[i])
-            for d, h in zip(self._dev[i], self._host[i]):
-                d.copy_(h, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(self._stream)
-        self._copied[i] = copied
-        compute.wait_event(copied)
-        out = fn(self._dev[i])
-        consumed = torch.cuda.Event()
-        consumed.record(compute)
-        self._consumed[i] = consumed
+            with span("wait"):
+                self._copied[i].synchronize()
+        with span("stage"):
+            fill([h.numpy() for h in self._host[i]])
+        with span("launch"):
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._stream):
+                if self._consumed[i] is not None:
+                    self._stream.wait_event(self._consumed[i])
+                for d, h in zip(self._dev[i], self._host[i]):
+                    d.copy_(h, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._stream)
+            self._copied[i] = copied
+            compute.wait_event(copied)
+            out = fn(self._dev[i])
+            consumed = torch.cuda.Event()
+            consumed.record(compute)
+            self._consumed[i] = consumed
         return out
 
 
@@ -286,6 +304,8 @@ class DeviceScanner:
         self._sizes = sizes
         self._uploader = _PinnedUploader(sizes, self.device) if on_gpu else None
         self.payload_pulls = 0  # resolves that pulled the members' payloads
+        # the span recorder of the scan in progress (CorpusPipeline sets it)
+        self.span = no_span
 
     def replica(self, device) -> "DeviceScanner":
         """The same plan on another device (or once more on this one):
@@ -297,6 +317,7 @@ class DeviceScanner:
         on_gpu = other.device.type == "cuda"
         other._uploader = _PinnedUploader(self._sizes, other.device) if on_gpu else None
         other.payload_pulls = 0
+        other.span = no_span
         return other
 
     @staticmethod
@@ -403,9 +424,11 @@ class DeviceScanner:
         into pinned host memory are queued asynchronously on the
         device's current stream, so the host goes on packing the next
         batch; ``ready`` marks the count's arrival (None on the CPU)."""
+        span = self.span
         want = self._want
         if buf.shape[0] < want:  # caller without the packer's tail
-            buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
+            with span("stage"):
+                buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
         buf = buf[:want]
         stride = self._stride
         lin = buf[: self.buf_size]
@@ -419,16 +442,19 @@ class DeviceScanner:
                     stride.s_w, N_STREAMS))
 
         if self._uploader is None:
-            raws = [torch.from_numpy(buf)] if self._linear else []
-            if stride is not None:
-                raws.append(torch.from_numpy(stride.prep_t(lin).reshape(-1).view(np.uint8)))
-            total, payloads = self._scan(raws)
+            with span("stage"):
+                raws = [torch.from_numpy(buf)] if self._linear else []
+                if stride is not None:
+                    raws.append(torch.from_numpy(stride.prep_t(lin).reshape(-1).view(np.uint8)))
+            with span("launch"):  # the plain kernels run here
+                total, payloads = self._scan(raws)
             return total, payloads, None
-        total, payloads = self._uploader.run(fill, self._scan)
-        host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
-        host_total.copy_(total, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(self.device))
+        total, payloads = self._uploader.run(fill, self._scan, span)
+        with span("launch"):
+            host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
+            host_total.copy_(total, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
         return host_total, payloads, ready
 
     def resolve(self, handles) -> np.ndarray:
@@ -440,14 +466,17 @@ class DeviceScanner:
         their decoded flags are unioned."""
         nb = self.buf_size // self.block
         total, payloads, ready = handles
+        span = self.span
         if ready is not None:
-            ready.synchronize()
-        flags = np.zeros(nb, dtype=np.int32)
-        if int(total) == 0:
-            return flags
-        self.payload_pulls += 1
-        for m, pk in zip(self.members, payloads):
-            np.maximum(flags, m.flags_np(pk.cpu().numpy(), nb), out=flags)
+            with span("wait"):
+                ready.synchronize()
+        with span("pull"):
+            flags = np.zeros(nb, dtype=np.int32)
+            if int(total) == 0:
+                return flags
+            self.payload_pulls += 1
+            for m, pk in zip(self.members, payloads):
+                np.maximum(flags, m.flags_np(pk.cpu().numpy(), nb), out=flags)
         return flags
 
     def scan(self, buf: np.ndarray) -> np.ndarray:
@@ -456,14 +485,18 @@ class DeviceScanner:
 
 class CorpusPipeline:
     """Streams (path, data) pairs through the packer + device scanner,
-    yielding (path, data, counts) in input order with bounded memory."""
+    yielding (path, data, counts) in input order with bounded memory.
+    ``span``: the request's span recorder (``engine.ScanStats.span``),
+    lent to the scanner while a stream runs."""
 
     def __init__(
-        self, scanner: DeviceScanner, halo: int = HALO, no_split: bool = False
+        self, scanner: DeviceScanner, halo: int = HALO, no_split: bool = False,
+        span=no_span,
     ):
         self.scanner = scanner
         self.halo = halo
         self.no_split = no_split
+        self.span = span
         self.batches_run = 0
 
     def run(
@@ -484,20 +517,17 @@ class CorpusPipeline:
         not be read (reference behavior: report and continue,
         grab.cc:267-268)."""
         self._fill_threads = fill_threads
-        yield from self._stream(entries, by_size=True)
+        return self._stream(entries, by_size=True)
 
     def _stream(
         self, items: Iterable[Tuple[str, object]], by_size: bool
     ) -> Iterator[Tuple[str, object, np.ndarray, int]]:
-        from collections import deque
-
-        from grab_tpu_torch.ingest.packer import BatchPacker
-
+        span = self.span
         block = self.scanner.block
+        buf_size = self.scanner.buf_size
         group_size = getattr(self.scanner, "group_size", 1)
-        packer = BatchPacker(
-            self.scanner.buf_size, block, self.halo, no_split=self.no_split
-        )
+        with span("pack"):
+            packer = BatchPacker(buf_size, block, self.halo, no_split=self.no_split)
         # in-flight bookkeeping, keyed by file index
         inflight: Dict[int, list] = {}  # idx -> [path, payload, counts, final, errno]
         packed_done: set = set()  # fully packed, awaiting their last flush
@@ -507,6 +537,37 @@ class CorpusPipeline:
         pending: List = []  # batches awaiting a full shard group
         emitted = 0
         total = 0
+        walk = iter(items)
+
+        def pull():
+            """The walk's next files: at least a buffer's bytes, at most
+            PULL_MAX files, fewer at the walk's end (none: it ended). No
+            batch closes before a buffer's bytes are packed, so pulling
+            them first delays no upload."""
+            got, nbytes = [], 0
+            for item in walk:
+                got.append(item)
+                nbytes += item[1] if by_size else len(item[1])
+                if nbytes >= buf_size or len(got) >= PULL_MAX:
+                    break
+            return got
+
+        def pack(got):
+            """Pack the pulled files in order; yields batches as they close."""
+            nonlocal total
+            for path, payload in got:
+                idx = total
+                total += 1
+                size = payload if by_size else len(payload)
+                nblocks = -(-size // block)
+                inflight[idx] = [
+                    path, payload, np.zeros(nblocks, dtype=np.int32), False, 0,
+                ]
+                if by_size:
+                    yield from packer.feed_size(idx, size)
+                else:
+                    yield from packer.feed(idx, payload)
+                packed_done.add(idx)
 
         def fill_batch(batch):
             """Populate an unfilled (descriptor-only) batch via the
@@ -546,7 +607,8 @@ class CorpusPipeline:
             self.batches_run += len(pending)
             for b in pending:
                 if not b.filled:
-                    fill_batch(b)
+                    with span("fill"):
+                        fill_batch(b)
             if group_size == 1:
                 handles = self.scanner.submit(pending[0].buf)
             else:
@@ -566,51 +628,61 @@ class CorpusPipeline:
                 counts_list = [self.scanner.resolve(handles)]
             else:
                 counts_list = self.scanner.resolve_group(handles)
-            for batch, counts in zip(batches, counts_list):
-                for seg in batch.segments:
-                    st = inflight[seg.file_idx]
-                    b0 = seg.buf_off // block
-                    nb = -(-seg.length // block)
-                    f0 = seg.file_off // block
-                    fc = st[2]
-                    lim = min(f0 + nb, fc.shape[0])
-                    np.maximum(
-                        fc[f0:lim], counts[b0 : b0 + (lim - f0)], out=fc[f0:lim]
-                    )
-            for i in done_set:
-                inflight[i][3] = True
+            with span("pull"):
+                for batch, counts in zip(batches, counts_list):
+                    for seg in batch.segments:
+                        st = inflight[seg.file_idx]
+                        b0 = seg.buf_off // block
+                        nb = -(-seg.length // block)
+                        f0 = seg.file_off // block
+                        fc = st[2]
+                        lim = min(f0 + nb, fc.shape[0])
+                        np.maximum(
+                            fc[f0:lim], counts[b0 : b0 + (lim - f0)], out=fc[f0:lim]
+                        )
+                for i in done_set:
+                    inflight[i][3] = True
+                # drop the group's last references here: freeing a filled
+                # buffer (munmap of its pages) is part of this span
+                batch = None
+                batches.clear()
 
         def drain():
+            """The files that became final, in input order."""
             nonlocal emitted
-            while emitted < total and emitted in inflight and inflight[emitted][3]:
-                st = inflight.pop(emitted)
-                yield (st[0], st[1], st[2], st[4])
-                emitted += 1
+            with span("pack"):
+                done = []
+                while emitted < total and emitted in inflight and inflight[emitted][3]:
+                    st = inflight.pop(emitted)
+                    done.append((st[0], st[1], st[2], st[4]))
+                    emitted += 1
+            return done
 
-        for path, payload in items:
-            idx = total
-            total += 1
-            size = payload if by_size else len(payload)
-            nblocks = -(-size // block)
-            inflight[idx] = [
-                path, payload, np.zeros(nblocks, dtype=np.int32), False, 0,
-            ]
-            feed = (
-                packer.feed_size(idx, size)
-                if by_size
-                else packer.feed(idx, payload)
-            )
-            for batch in feed:
-                submit_batch(batch)
-                yield from drain()
-            packed_done.add(idx)
-        final = packer.finish()
-        if final is not None:
-            submit_batch(final)
-        flush_group()
-        while submitted:
-            apply_one()
-        for i in packed_done:
-            inflight[i][3] = True
-        packed_done.clear()
-        yield from drain()
+        self.scanner.span = span
+        try:
+            while True:
+                with span("walk"):
+                    got = pull()
+                if not got:
+                    break
+                batches = pack(got)
+                while True:
+                    with span("pack"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    submit_batch(batch)
+                    yield from drain()
+            with span("pack"):
+                final = packer.finish()
+            if final is not None:
+                submit_batch(final)
+            flush_group()
+            while submitted:
+                apply_one()
+            for i in packed_done:
+                inflight[i][3] = True
+            packed_done.clear()
+            yield from drain()
+        finally:
+            self.scanner.span = no_span

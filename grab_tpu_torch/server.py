@@ -19,25 +19,46 @@ Device scanners (tables, upload rings, streams) are cached across
 requests keyed by (patterns, mode, buffer size, device setting,
 effective shards); the patterns are compiled again for every request,
 and output flags are per-request. The scan device is the server
-process's (GRAB_TPU_TORCH_DEVICE, default cuda).
+process's (GRAB_TPU_TORCH_DEVICE, default cuda). The cache counts its
+hits and misses; a request's ``--stats`` line says which it was
+(``scanner=hit|miss``; ``none`` for a host-only scan), the running
+totals so far (``cache=HITS/MISSES``) and the request's number
+(``req=``).
+
+The operator's read of the start is the listening line on stderr:
+
+    tpugrep-server: listening on S (start: torch+context 9.54s, kernels 6.81s, warm 0.01s)
+
+``torch+context``: the imports (torch's among them) and the CUDA
+context on each card; ``kernels``: the core-word kernel library built
+(nvcc, on a checkout's first start) and loaded; ``warm``: ``_warm``'s
+launches.
 """
 
 from __future__ import annotations
 
-import json
-import os
-import socket
-import struct
-import sys
-from typing import Dict, List
+import time
 
-from grab_tpu_torch import cli as cli_mod
-from grab_tpu_torch.engine import Engine, EngineConfig, effective_shards
+_T_START = time.perf_counter()
+
+import json  # noqa: E402
+import os  # noqa: E402
+import socket  # noqa: E402
+import struct  # noqa: E402
+import sys  # noqa: E402
+from typing import Dict, List, Tuple  # noqa: E402
+
+from grab_tpu_torch import cli as cli_mod  # noqa: E402
+from grab_tpu_torch.engine import Engine, EngineConfig, effective_shards  # noqa: E402
+
+_IMPORT_S = time.perf_counter() - _T_START
 
 
 class _EngineCache:
     def __init__(self):
         self._scanners: Dict[tuple, object] = {}
+        self.hits = 0  # requests served by a cached scanner
+        self.misses = 0  # requests that built one
 
     def engine_for(self, patterns: List[bytes], cfg: EngineConfig) -> Engine:
         # shard count and devices are part of the scanner's identity: a
@@ -49,13 +70,21 @@ class _EngineCache:
             cfg.device,
             effective_shards(cfg),
         )
-        eng = Engine(patterns, cfg, scanner=self._scanners.get(key))
+        cached = self._scanners.get(key)
+        eng = Engine(patterns, cfg, scanner=cached)
         if eng._scanner is not None:
             self._scanners[key] = eng._scanner
+            if cached is None:
+                self.misses += 1
+                eng.stats.scanner = "miss"
+            else:
+                self.hits += 1
+                eng.stats.scanner = "hit"
+        eng.stats.cache = (self.hits, self.misses)
         return eng
 
 
-def _handle(conn: socket.socket, cache: _EngineCache):
+def _handle(conn: socket.socket, cache: _EngineCache, request: int):
     f = conn.makefile("rb")
     line = f.readline()
     if not line:
@@ -95,7 +124,7 @@ def _handle(conn: socket.socket, cache: _EngineCache):
     # sys.stdout/sys.stderr swapping, so in-process test clients can't
     # race on the globals
     try:
-        rc = _run_with_cache(argv, cache, out_writer, err_writer)
+        rc = _run_with_cache(argv, cache, out_writer, err_writer, request)
     except (BrokenPipeError, ConnectionResetError):
         raise
     except Exception as e:
@@ -104,9 +133,9 @@ def _handle(conn: socket.socket, cache: _EngineCache):
     conn.sendall(struct.pack("!I", 0) + struct.pack("!I", rc & 0xFF))
 
 
-def _run_with_cache(argv: List[str], cache: _EngineCache, out, err) -> int:
+def _run_with_cache(argv: List[str], cache: _EngineCache, out, err, request: int) -> int:
     """cli.main with the server's scanner cache injected (no module
-    globals touched)."""
+    globals touched); ``request``: the request's number."""
 
     def cached_engine(patterns, cfg):
         return cache.engine_for(
@@ -116,12 +145,13 @@ def _run_with_cache(argv: List[str], cache: _EngineCache, out, err) -> int:
     if argv[:1] == ["--via"]:
         print("tpugrep-server: --via inside a request", file=err)
         return 255
-    return cli_mod.main(argv, out=out, err=err, engine_factory=cached_engine)
+    return cli_mod.main(argv, out=out, err=err, engine_factory=cached_engine, request=request)
 
 
 def serve(sock_path: str, warm: bool = True):
+    context_s = kernels_s = warm_s = 0.0
     if warm:
-        _warm()
+        context_s, kernels_s, warm_s = _warm()
     if os.path.exists(sock_path):
         os.unlink(sock_path)
     srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -134,36 +164,52 @@ def serve(sock_path: str, warm: bool = True):
     srv.bind(tmp)
     srv.listen(8)
     os.rename(tmp, sock_path)
-    print(f"tpugrep-server: listening on {sock_path}", file=sys.stderr)
+    print(
+        f"tpugrep-server: listening on {sock_path} (start: torch+context "
+        f"{_IMPORT_S + context_s:.2f}s, kernels {kernels_s:.2f}s, warm {warm_s:.2f}s)",
+        file=sys.stderr,
+    )
     cache = _EngineCache()
+    request = 0
     while True:
         conn, _ = srv.accept()
+        request += 1
         try:
-            _handle(conn, cache)
+            _handle(conn, cache, request)
         except (BrokenPipeError, ConnectionResetError):
             pass
         finally:
             conn.close()
 
 
-def _warm():
+def _warm() -> Tuple[float, float, float]:
     """Build and load the kernel library and launch the core-word kernel
     for the standard shapes on every CUDA shard device, so the first
     request is fast. A kernel that does not build or launch stops the
     server's start: every request would fail on it. Nothing to warm on
-    the CPU."""
+    the CPU. → seconds of (the CUDA contexts, the library's build and
+    load, the launches)."""
     import torch
 
+    from grab_tpu_torch import _build
     from grab_tpu_torch.ops.corewords import LANES, PAD_ROWS, CoreWordScanner
     from grab_tpu_torch.scan_pipeline import resolve_devices
 
     setting = EngineConfig().device  # the process's scan device
     if setting == "none":
-        return
+        return 0.0, 0.0, 0.0
+    devs = [d for d in dict.fromkeys(resolve_devices(setting)) if d.type == "cuda"]
+    if not devs:
+        return 0.0, 0.0, 0.0
+    t0 = time.perf_counter()
+    for dev in devs:
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    _build.cuda_library("corewords")
+    t2 = time.perf_counter()
     rows = (32 << 20) // 512
-    for dev in dict.fromkeys(resolve_devices(setting)):
-        if dev.type != "cuda":
-            continue
+    for dev in devs:
         words2d = torch.zeros((rows + PAD_ROWS, LANES), dtype=torch.int32, device=dev)
         # the common production shapes: single long literal (unmasked),
         # single short literal (masked 2-word), a compare bucket of 16
@@ -174,6 +220,7 @@ def _warm():
         ):
             CoreWordScanner(lits).packed(words2d)
         torch.cuda.synchronize(dev)
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
 
 
 def client(sock_path: str, argv: List[str]) -> int:

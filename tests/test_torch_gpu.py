@@ -1133,3 +1133,57 @@ def test_dfa_walk_wrapper_refuses_bad_input_on_card(cuda):
     with pytest.raises(ValueError):  # 7 streams do not divide the buffer
         ds.dfa_walk_flags(buf[: 48 << 10], member.tables, 7)
     assert ds.dfa_walk_flags.launches == before
+
+
+@pytest.mark.gpu
+def test_request_spans_on_card(cuda, tmp_path, monkeypatch):
+    """--stats --trace of a recursive scan on the card: stage, launch and
+    wait are nonzero, the pipeline's spans partition scan= (5% or 5 ms),
+    and the spans are host ranges of the CUDA trace, inside the
+    profiler's window beside the device's operations; kineto's
+    gpu_user_annotation copies of them add no device time."""
+    import io
+    import json
+
+    from grab_tpu_torch import cli
+    from grab_tpu_torch.engine import PIPELINE_SPANS, Engine
+    from scanbench import tracefile
+
+    monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", "cuda")
+    root = tmp_path / "d"
+    root.mkdir()
+    rng = np.random.default_rng(7)
+    for i, n in enumerate((30 << 20, 40 << 20, 3 << 20)):
+        data = rng.integers(97, 123, size=n, dtype=np.uint8)
+        data[::97] = 10
+        data[n // 2 : n // 2 + 8] = np.frombuffer(b"needleXY", dtype=np.uint8)
+        (root / f"f{i}.txt").write_bytes(data.tobytes())
+    engines = []
+
+    def keep(pats, cfg):
+        engines.append(Engine(pats, cfg))
+        return engines[-1]
+
+    # a first scan builds and loads what the process needs, as a server's warm-up does
+    assert cli.main(["-r", "needleXY", str(root)], out=io.BytesIO(), err=io.StringIO()) == 0
+    out, err = io.BytesIO(), io.StringIO()
+    d = tmp_path / "t"
+    rc = cli.main(["--stats", "--trace", str(d), "-r", "needleXY", str(root)], out=out, err=err,
+                  engine_factory=keep, request=4)
+    assert rc == 0 and out.getvalue().count(b"needleXY") == 3, err.getvalue()
+    st = engines[0].stats
+    assert all(st.spans.get(k, 0.0) > 0 for k in ("walk", "fill", "stage", "launch", "wait", "pull"))
+    parts = st.spans["walk"] + sum(st.spans.get(k, 0.0) for k in PIPELINE_SPANS)
+    assert abs(parts - st.wall_scan) <= max(0.05 * st.wall_scan, 0.005), (parts, st.wall_scan, st.spans)
+    assert st.device_batches >= 3 and st.pulls >= 1 and " | req=4 " in err.getvalue()
+    events = json.loads((d / "trace.json").read_text())["traceEvents"]
+    prof = [e for e in events if str(e.get("name", "")).startswith("PyTorch Profiler")][0]
+    lo, hi = prof["ts"], prof["ts"] + prof["dur"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    assert {"walk", "pack", "fill", "stage", "launch", "wait", "pull"} <= {e["name"] for e in ranges}
+    assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in ranges)
+    device = [e for e in events if e.get("cat") in tracefile.DEVICE_CATS]
+    assert device and all(lo <= e["ts"] <= hi for e in device)
+    t = tracefile.summarize(events)
+    bare = tracefile.summarize([e for e in events if e.get("cat") != "gpu_user_annotation"])
+    assert t.busy_us == bare.busy_us > 0 and not any(k in t.ops_us for k in PIPELINE_SPANS)
