@@ -380,7 +380,9 @@ class ScanStats:
     times a stage where it runs: ``compile`` and ``scanner`` in
     Engine.__init__; inside the scan pipeline, whose main thread they
     partition, ``walk`` (blocked on the walk), ``pack``, ``fill`` (the
-    pread pool), ``stage`` (into the pinned slot), ``launch`` (queueing
+    pread pool, into the slot the scan reads), ``stage`` (zeroing what
+    an earlier batch left in the slot past this one's end, a stride
+    member's host transpose into the pinned slot), ``launch`` (queueing
     copies and kernels), ``wait`` (blocked on the device) and ``pull``
     (payloads and their fold into files); ``replay`` per replayed file.
     A span opens per batch or replayed file, never per walked file.
@@ -399,6 +401,7 @@ class ScanStats:
     request: int = 0  # the request's id: the scan server's count
     spans: Dict[str, float] = field(default_factory=dict)  # name -> seconds
     pulls: int = 0  # batches whose payloads left the device
+    inplace: int = 0  # batches filled straight into the buffer the scan reads
     # hit | miss: the scan server's cache held the scanner, or built it
     # (set by server._EngineCache); none: not served through that cache
     scanner: str = "none"
@@ -448,7 +451,7 @@ class ScanStats:
             f" | req={self.request} compile={t('compile', 0.0):.4f}s "
             f"scanner={self.scanner}:{t('scanner', 0.0):.4f}s "
             + "".join(f"{k}={t(k, 0.0):.4f}s " for k in PIPELINE_SPANS)
-            + f"pulls={self.pulls} kernel_load={load_s:.4f}s/{built}/{loaded}"
+            + f"pulls={self.pulls} inplace={self.inplace} kernel_load={load_s:.4f}s/{built}/{loaded}"
             + ("" if self.cache is None else f" cache={self.cache[0]}/{self.cache[1]}")
         )
 
@@ -734,7 +737,8 @@ class Engine:
                 st.clean_files += 1
             _close_quietly(data)
             t_last = time.monotonic()
-        st.device_batches = getattr(pipeline, "batches_run", 0)
+        st.device_batches = pipeline.batches_run
+        st.inplace = pipeline.batches_inplace
         st.pulls = scanner.payload_pulls - pulls0
         return 0
 
@@ -802,7 +806,8 @@ class Engine:
             if on_done is not None:
                 on_done(path)
             t_last = time.monotonic()
-        st.device_batches = getattr(pipeline, "batches_run", 0)
+        st.device_batches = pipeline.batches_run
+        st.inplace = pipeline.batches_inplace
         st.pulls = scanner.payload_pulls - pulls0
         return 0
 

@@ -47,22 +47,7 @@ def _load():
         return None
     lib.gt_walk.restype = ctypes.c_int
     lib.gt_walk.argtypes = [ctypes.c_char_p, _WALK_CB, _ERR_CB, ctypes.c_void_p]
-    lib.gt_fill.restype = ctypes.c_int
-    lib.gt_fill.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8),
-        ctypes.POINTER(_Seg),
-        ctypes.c_int32,
-        ctypes.c_int32,
-    ]
     if lib.gt_abi_version() >= 2:
-        lib.gt_fill2.restype = ctypes.c_int
-        lib.gt_fill2.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(_Seg),
-            ctypes.c_int32,
-            ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int32),
-        ]
         lib.gt_pwalk.restype = ctypes.c_int
         lib.gt_pwalk.argtypes = [
             ctypes.c_char_p,
@@ -88,6 +73,16 @@ def _load():
             ctypes.c_int64,
             ctypes.c_int64,
             ctypes.c_int32,
+        ]
+    if lib.gt_abi_version() >= 5:
+        lib.gt_fill2.restype = ctypes.c_int
+        lib.gt_fill2.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(_Seg),
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
         ]
     _lib = lib
     return lib
@@ -233,26 +228,6 @@ def walk_names_native(
     return out
 
 
-def fill_native(
-    buf: np.ndarray, segments: List[Tuple[bytes, int, int, int]], nthreads: int = 8
-) -> Optional[int]:
-    """Fill ``buf`` (uint8, C-contiguous) from (path, file_off, buf_off,
-    length) segments with the native thread pool. Returns failure count,
-    or None if the library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    n = len(segments)
-    arr = (_Seg * n)()
-    for i, (path, foff, boff, length) in enumerate(segments):
-        arr[i].path = path
-        arr[i].file_off = foff
-        arr[i].buf_off = boff
-        arr[i].length = length
-    ptr = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-    return int(lib.gt_fill(ptr, arr, n, nthreads))
-
-
 def transpose_stream_rows(
     src: np.ndarray, nthreads: int = 8, out: "np.ndarray | None" = None
 ) -> np.ndarray:
@@ -293,13 +268,18 @@ def transpose_stream_rows(
 def fill_segments(
     buf: np.ndarray,
     segments: List[Tuple[bytes, int, int, int]],
+    block: int,
     nthreads: int = 8,
 ) -> List[int]:
     """Fill ``buf`` from (path, file_off, buf_off, length) segments;
-    returns a per-segment errno list (0 = ok). Uses the native pread
-    pool (GIL-free, parallel — the replacement for the reference's
-    mmap streaming, grab.cc:137-169) when available, else a Python
-    os.pread fallback with identical semantics."""
+    returns a per-segment errno list (0 = ok). Each segment's extent,
+    its length rounded up to ``block``, is written whole: what the file
+    gives, then zeros (the padding, a short read's tail, what a failed
+    open or read left unread), so a reused ``buf`` needs no zeroing
+    there first. Uses the native pread pool (GIL-free, parallel — the
+    replacement for the reference's mmap streaming, grab.cc:137-169)
+    when available, else a Python os.pread fallback with identical
+    semantics."""
     n = len(segments)
     lib = _load()
     if lib is not None and hasattr(lib, "gt_fill2"):
@@ -311,13 +291,14 @@ def fill_segments(
             arr[i].length = length
         failed = (ctypes.c_int32 * n)()
         ptr = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-        lib.gt_fill2(ptr, arr, n, nthreads, failed)
+        lib.gt_fill2(ptr, arr, n, nthreads, failed, block)
         return list(failed)
     # Python fallback: sequential preads, one fd per distinct path run
     errs = [0] * n
     fd, fd_path = -1, None
     try:
         for i, (path, foff, boff, length) in enumerate(segments):
+            done = 0
             if path != fd_path:
                 if fd >= 0:
                     os.close(fd)
@@ -326,25 +307,22 @@ def fill_segments(
                 try:
                     fd = os.open(path, os.O_RDONLY | os.O_NOCTTY)
                 except OSError as e:
-                    fd = -1
                     errs[i] = e.errno or 1
-                    continue
             if fd < 0:
                 errs[i] = errs[i] or 1
-                continue
-            done = 0
-            while done < length:
+            while fd >= 0 and done < length:
                 try:
                     chunk = os.pread(fd, length - done, foff + done)
                 except OSError as e:
                     errs[i] = e.errno or 1
                     break
                 if not chunk:
-                    break  # file shrank since stat: tail stays zero
+                    break  # file shrank since stat: a short read
                 buf[boff + done : boff + done + len(chunk)] = np.frombuffer(
                     chunk, dtype=np.uint8
                 )
                 done += len(chunk)
+            buf[boff + done : boff + length + (-length % block)] = 0
     finally:
         if fd >= 0:
             os.close(fd)

@@ -7,7 +7,7 @@
 //   gt_walk      — physical recursive walk (symlinks not followed,
 //                  regular files only, per-entry error containment,
 //                  sorted traversal for deterministic output order).
-//   gt_fill      — fill a fixed scan buffer from file segments with a
+//   gt_fill2     — fill a fixed scan buffer from file segments with a
 //                  thread pool of pread()s (the GIL-free replacement
 //                  for Python's copy loop; keeps N chips fed).
 //
@@ -305,11 +305,20 @@ typedef struct {
 // If failed != NULL it has nsegs entries; a failed segment i sets
 // failed[i] to the (positive) errno so the caller can report the
 // reference's per-file "path: strerror" line (grab.cc:267-268) and
-// skip the file. Failed segments leave zeros in buf.
+// skip the file.
+//
+// buf is reused batch after batch, so each segment's extent (its
+// length rounded up to a multiple of block) is written whole: the
+// bytes read, then zeros for the rest -- the padding up to the next
+// block, the tail of a short read (the file shrank since the walk's
+// stat) and everything past what a failed open or read delivered.
+// The extent then reads as it would in a buffer zeroed before the
+// fill, whatever the previous batch left there.
 int gt_fill2(uint8_t *buf, const gt_seg *segs, int32_t nsegs,
-             int32_t nthreads, int32_t *failed) {
+             int32_t nthreads, int32_t *failed, int64_t block) {
   if (nthreads < 1) nthreads = 1;
   if (nthreads > 64) nthreads = 64;
+  if (block < 1) block = 1;
   std::atomic<int32_t> next{0};
   std::atomic<int32_t> failures{0};
 
@@ -318,6 +327,9 @@ int gt_fill2(uint8_t *buf, const gt_seg *segs, int32_t nsegs,
       int32_t i = next.fetch_add(1);
       if (i >= nsegs) return;
       const gt_seg &s = segs[i];
+      uint8_t *dst = buf + s.buf_off;
+      const int64_t extent = (s.length + block - 1) / block * block;
+      int64_t done = 0;
       int flags = O_RDONLY | O_NOCTTY;
 #ifdef O_NOATIME
       int fd = open(s.path, flags | O_NOATIME);
@@ -328,25 +340,22 @@ int gt_fill2(uint8_t *buf, const gt_seg *segs, int32_t nsegs,
       if (fd < 0) {
         failures.fetch_add(1);
         if (failed) failed[i] = errno > 0 ? errno : EIO;
-        continue;
-      }
-      int64_t done = 0;
-      while (done < s.length) {
-        ssize_t r = pread(fd, buf + s.buf_off + done, s.length - done,
-                          s.file_off + done);
-        if (r < 0) {
-          failures.fetch_add(1);
-          if (failed) failed[i] = errno > 0 ? errno : EIO;
-          break;
+      } else {
+        while (done < s.length) {
+          ssize_t r = pread(fd, dst + done, s.length - done, s.file_off + done);
+          if (r < 0) {
+            failures.fetch_add(1);
+            if (failed) failed[i] = errno > 0 ? errno : EIO;
+            break;
+          }
+          // r == 0: the file shrank since the walk's stat; the caller
+          // sees a short read, not an error
+          if (r == 0) break;
+          done += r;
         }
-        if (r == 0) {
-          // file shrank since the walk's stat: the tail stays zero and
-          // the caller sees a short read, not an error
-          break;
-        }
-        done += r;
+        close(fd);
       }
-      close(fd);
+      memset(dst + done, 0, extent - done);
     }
   };
 
@@ -362,11 +371,6 @@ int gt_fill2(uint8_t *buf, const gt_seg *segs, int32_t nsegs,
     for (auto &th : threads) th.join();
   }
   return failures.load();
-}
-
-int gt_fill(uint8_t *buf, const gt_seg *segs, int32_t nsegs,
-            int32_t nthreads) {
-  return gt_fill2(buf, segs, nsegs, nthreads, nullptr);
 }
 
 // Blocked multithreaded 32-bit matrix transpose:
@@ -426,6 +430,6 @@ int gt_transpose32(int32_t *dst, const int32_t *src, int64_t n_rows,
 }
 
 // Simple self-description for the loader's version handshake.
-int gt_abi_version(void) { return 4; }
+int gt_abi_version(void) { return 5; }
 
 }  // extern "C"

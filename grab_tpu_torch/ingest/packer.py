@@ -18,15 +18,21 @@ Rules:
     bytes of a segment, never miss matches — false candidates are
     discarded by host verification.
 
-This replaces the reference's one-mmap-per-chunk I/O (grab.cc:161) with
-batch uploads the TPU can stream; the C++ native packer (ingest/native)
-fills the same layout without the GIL.
+A batch is a plan: its segments and its fill pointer (``end``), no
+bytes. The pipeline fills it into the buffer that the scan reads (the
+pinned upload slot on the card), straight from disk by the native pread
+pool (ingest/native gt_fill2) or, for in-memory data, by
+``copy_segments``. That buffer is reused batch after batch, so both
+write each segment's whole extent (its bytes, then zeros up to the next
+block) and the pipeline zeroes the rest of what an earlier batch wrote
+past ``end``. This replaces the reference's one-mmap-per-chunk I/O
+(grab.cc:161) with batch uploads the device can stream.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -41,10 +47,22 @@ class Segment:
 
 @dataclass
 class Batch:
-    buf: np.ndarray  # uint8 [buf_size]
     segments: List[Segment]
-    filled: bool = True  # False: segments are descriptors; buf awaits
-    # a fill pass (native pread pool / Python fallback) before submit
+    end: int  # fill pointer: the last segment's extent ends here, zeros after
+
+
+def copy_segments(
+    dst: np.ndarray, segments: List[Segment], data_of: Callable[[int], object], block: int
+) -> None:
+    """Write in-memory file data into ``dst``: each segment's bytes from
+    ``data_of(file_idx)`` (anything with the buffer protocol), then
+    zeros up to the next ``block`` boundary."""
+    for seg in segments:
+        lo, hi = seg.buf_off, seg.buf_off + seg.length
+        dst[lo:hi] = np.frombuffer(
+            data_of(seg.file_idx), dtype=np.uint8, count=seg.length, offset=seg.file_off
+        )
+        dst[hi : hi + (-seg.length % block)] = 0
 
 
 class BatchPacker:
@@ -55,7 +73,6 @@ class BatchPacker:
         buf_size: int,
         block: int = 512,
         halo: int = 0x1000,
-        tail: int = 4096,
         no_split: bool = False,
     ):
         assert buf_size % block == 0
@@ -68,57 +85,24 @@ class BatchPacker:
         # patterns, where the halo cannot cover cross-batch matches and
         # the strided-DFA threading makes in-buffer coverage exact
         self.no_split = no_split
-        # zero tail rows after the logical buffer: the core-word kernel
-        # reads a PAD_ROWS lane+1 halo past the last tile (ops/pallas_corewords)
-        self.tail = tail
         self.min_seg = halo + block  # smallest useful continuation segment
-        self._buf = np.zeros(buf_size + tail, dtype=np.uint8)
         self._used = 0  # block-aligned fill pointer
         self._segments: List[Segment] = []
 
     def _flush(self) -> Optional[Batch]:
         if not self._segments:
             return None
-        batch = Batch(self._buf, self._segments, filled=self._filled)
-        self._buf = np.zeros(self.buf_size + self.tail, dtype=np.uint8)
+        batch = Batch(self._segments, self._used)
         self._used = 0
         self._segments = []
-        self._filled = True
         return batch
 
-    _filled = True
-
-    def feed(self, file_idx: int, data) -> Iterator[Batch]:
-        """Pack one file's bytes; yields full batches as they close.
-
-        ``data`` is anything with len() and the buffer protocol
-        (bytes, mmap, np array)."""
-        for seg, batch in self._plan(file_idx, len(data)):
-            if seg is not None:
-                view = np.frombuffer(
-                    data, dtype=np.uint8, count=seg.length, offset=seg.file_off
-                )
-                self._buf[seg.buf_off : seg.buf_off + seg.length] = view
-            if batch is not None:
-                yield batch
-
     def feed_size(self, file_idx: int, size: int) -> Iterator[Batch]:
-        """Pack one file by SIZE only: segments are descriptors and the
-        batch is yielded unfilled (``filled=False``) — the pipeline
-        fills it with the native pread pool (ingest/native gt_fill) or
-        the Python fallback, so scan buffers are populated without
-        GIL-bound per-segment copies and clean files are never opened
-        in Python at all (the reference's I/O loop IS its scan loop,
+        """Plan one file of ``size`` bytes into segments; yields full
+        batches as they close. Nothing is read here: the pipeline fills
+        a batch when it is submitted, so a clean file is never opened in
+        Python at all (the reference's I/O loop IS its scan loop,
         grab.cc:137-169; ours is the fill pass)."""
-        for seg, batch in self._plan(file_idx, size):
-            if seg is not None:
-                self._filled = False  # this buffer now has descriptors
-            if batch is not None:
-                yield batch
-
-    def _plan(self, file_idx: int, size: int):
-        """Shared packing math: yields (segment_or_None, batch_or_None)
-        steps; a closing buffer yields its Batch."""
         pos = 0
         if size == 0:
             return
@@ -133,12 +117,12 @@ class BatchPacker:
             ):
                 b = self._flush()
                 if b:
-                    yield None, b
+                    yield b
                 continue
             if free < min(self.min_seg, remaining + (-remaining % self.block)):
                 b = self._flush()
                 if b:
-                    yield None, b
+                    yield b
                 continue
             if remaining <= free:
                 seg_len = remaining
@@ -146,10 +130,8 @@ class BatchPacker:
                 # continuation: keep the next segment's file offset
                 # block-aligned (halo is a block multiple)
                 seg_len = (free // self.block) * self.block
-            seg = Segment(file_idx, pos, self._used, seg_len)
-            self._segments.append(seg)
+            self._segments.append(Segment(file_idx, pos, self._used, seg_len))
             self._used += seg_len + (-seg_len % self.block)
-            yield seg, None
             if pos + seg_len >= size:
                 return
             pos += seg_len - self.halo  # overlap: spans ≤ halo never lost

@@ -9,7 +9,8 @@ none of that is carried over. Here:
 
   * one lane per shard device: a ``DeviceScanner`` replica with its own
     pinned upload ring and its own CUDA stream; a device may carry
-    several lanes ('cuda:0,cuda:0');
+    several lanes ('cuda:0,cuda:0'); the pipeline fills each lane's
+    batch straight into that lane's slot (``claim``);
   * the compiled plan is built once and shared: the members' host
     tables are common, their device tables are uploaded once per device;
   * ``submit_group`` takes up to N packer buffers and queues each
@@ -72,6 +73,11 @@ class ShardedScanner:
     def payload_pulls(self) -> int:
         """Resolves, over all lanes, that pulled the members' payloads."""
         return sum(l.payload_pulls for l in self.lanes)
+
+    def claim(self, lane: int):
+        """The slot lane ``lane``'s next batch is filled into, from that
+        lane's own ring (``DeviceScanner.claim``)."""
+        return self.lanes[lane].claim()
 
     def submit_group(self, bufs: Sequence[np.ndarray]):
         """Queue up to n_shards packer buffers, one per lane, without

@@ -51,7 +51,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from grab_tpu_torch.ingest.packer import BatchPacker
+from grab_tpu_torch.ingest.native import fill_segments
+from grab_tpu_torch.ingest.packer import BatchPacker, copy_segments
 from grab_tpu_torch.ops.alpharun import AlphaRunScanner, alpharun_eligible
 from grab_tpu_torch.ops.classseq import ClassSeqScanner, compile_sequences
 from grab_tpu_torch.ops.corewords import LANES, PAD_ROWS, CoreWordScanner
@@ -137,6 +138,23 @@ def plan_refusal(cp) -> Optional[str]:
     return "pattern has no device-scannable form"
 
 
+class FillSlot:
+    """A host buffer that batch after batch is filled into, and how far
+    earlier batches wrote: every byte at and past ``dirty`` is zero. A
+    new slot's memory is not zeroed, so it starts dirty to its end.
+    ``inplace``: the scan reads the slot as filled, with no host copy
+    after the fill (the pinned upload slot, or on the CPU the buffer the
+    plain kernels read); a stride member's transpose out of it does not
+    count as such a read."""
+
+    __slots__ = ("buf", "dirty", "inplace")
+
+    def __init__(self, buf: np.ndarray, inplace: bool):
+        self.buf = buf
+        self.dirty = buf.shape[0]
+        self.inplace = inplace
+
+
 class _PinnedUploader:
     """Host → device uploads through a ring of pinned staging slots,
     copied on a side stream so the copy is asynchronous to the host. A
@@ -144,9 +162,9 @@ class _PinnedUploader:
     beside a stride member, the transposed words).
 
     Slot i's staging buffers are rewritten only after their previous
-    copy has completed (``_copied``), and its device buffers only after
+    copy has completed (``free``), and its device buffers only after
     the kernels that read them have run (``_consumed``), so a batch in
-    flight is never overwritten while CorpusPipeline packs the next one."""
+    flight is never overwritten while CorpusPipeline fills the next one."""
 
     DEPTH = 2  # CorpusPipeline keeps at most two batches in flight
 
@@ -156,6 +174,8 @@ class _PinnedUploader:
             [torch.empty(n, dtype=torch.uint8, pin_memory=True) for n in sizes]
             for _ in range(self.DEPTH)
         ]
+        # the slots' pinned buffers as numpy arrays, one object each
+        self.stagings = [[h.numpy() for h in slot] for slot in self._host]
         self._dev = [
             [torch.empty(n, dtype=torch.uint8, device=device) for n in sizes]
             for _ in range(self.DEPTH)
@@ -165,18 +185,23 @@ class _PinnedUploader:
         self._stream = torch.cuda.Stream(device)
         self._next = 0
 
-    def run(self, fill, fn, span):
-        """``fill(stagings)`` writes the batch into the free slot's pinned
-        uint8 numpy buffers; they are uploaded and ``fn(devs)`` launched
-        on the current stream after the copies. ``span``: the request's
-        recorder (wait for the slot, stage, launch)."""
+    def free(self, span) -> int:
+        """The index of the slot that ``run`` uploads next, once its
+        previous upload has completed (waited for under ``wait``): its
+        ``stagings`` may be written from then on."""
         i = self._next
-        self._next = (i + 1) % self.DEPTH
         if self._copied[i] is not None:
             with span("wait"):
                 self._copied[i].synchronize()
-        with span("stage"):
-            fill([h.numpy() for h in self._host[i]])
+            self._copied[i] = None
+        return i
+
+    def run(self, fn, span):
+        """Upload the slot that ``free`` handed out, as the caller wrote
+        it, and launch ``fn(devs)`` on the current stream after the
+        copies. ``span``: the request's recorder."""
+        i = self.free(span)
+        self._next = (i + 1) % self.DEPTH
         with span("launch"):
             compute = torch.cuda.current_stream(self.device)
             with torch.cuda.stream(self._stream):
@@ -302,10 +327,21 @@ class DeviceScanner:
         if self._stride is not None:
             sizes.append(self._stride.s_w * N_STREAMS * 4)
         self._sizes = sizes
-        self._uploader = _PinnedUploader(sizes, self.device) if on_gpu else None
+        self._set_ring(on_gpu)
         self.payload_pulls = 0  # resolves that pulled the members' payloads
         # the span recorder of the scan in progress (CorpusPipeline sets it)
         self.span = no_span
+
+    def _set_ring(self, on_gpu: bool) -> None:
+        """This scanner's own upload ring and fill slots: the pinned
+        linear slots where a member reads the linear words on the card,
+        else reused host buffers (made at first ``claim``)."""
+        self._uploader = _PinnedUploader(self._sizes, self.device) if on_gpu else None
+        self._slots: List[FillSlot] = []
+        if self._uploader is not None and self._linear:
+            self._slots = [FillSlot(st[0], True) for st in self._uploader.stagings]
+        self._ring: Optional[List[FillSlot]] = None
+        self._ring_next = 0
 
     def replica(self, device) -> "DeviceScanner":
         """The same plan on another device (or once more on this one):
@@ -314,8 +350,7 @@ class DeviceScanner:
         are the replica's own."""
         other = copy.copy(self)
         other.device = resolve_device(device)
-        on_gpu = other.device.type == "cuda"
-        other._uploader = _PinnedUploader(self._sizes, other.device) if on_gpu else None
+        other._set_ring(other.device.type == "cuda")
         other.payload_pulls = 0
         other.span = no_span
         return other
@@ -418,38 +453,62 @@ class DeviceScanner:
             payloads.append(pk)
         return total, payloads
 
+    def claim(self) -> FillSlot:
+        """The slot the next submitted batch is filled into: where a
+        member reads the linear words on the card, the free pinned upload
+        slot (waited for under ``wait``), which ``submit`` then uploads
+        with no host copy; else one of two reused host buffers, which the
+        plain kernels read on the CPU, or which a stride member's host
+        transpose reads into the pinned slot."""
+        if self._slots:
+            return self._slots[self._uploader.free(self.span)]
+        if self._ring is None:
+            self._ring = [
+                FillSlot(np.empty(self._want, dtype=np.uint8), self._linear)
+                for _ in range(_PinnedUploader.DEPTH)
+            ]
+        slot = self._ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % len(self._ring)
+        return slot
+
     def submit(self, buf: np.ndarray):
-        """Start the scan of one packer buffer; returns (total, payloads,
-        ready). On the GPU the uploads, the kernels and the count's copy
-        into pinned host memory are queued asynchronously on the
-        device's current stream, so the host goes on packing the next
-        batch; ``ready`` marks the count's arrival (None on the CPU)."""
+        """Start the scan of one filled buffer: a slot's from ``claim``,
+        read where it lies, or any other (copied into the pinned slot on
+        the card; a shorter one reads as zero-padded). Returns (total,
+        payloads, ready). On the GPU the uploads, the kernels and the
+        count's copy into pinned host memory are queued asynchronously
+        on the device's current stream, so the host goes on filling the
+        next batch; ``ready`` marks the count's arrival (None on the
+        CPU)."""
         span = self.span
         want = self._want
-        if buf.shape[0] < want:  # caller without the packer's tail
-            with span("stage"):
-                buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
-        buf = buf[:want]
         stride = self._stride
-        lin = buf[: self.buf_size]
-
-        def fill(stagings):
-            if self._linear:
-                np.copyto(stagings[0], buf)
-            if stride is not None:
-                # the host transpose writes straight into the pinned slot
-                stride.prep_t(lin, out=stagings[-1].view(np.int32).reshape(
-                    stride.s_w, N_STREAMS))
-
         if self._uploader is None:
             with span("stage"):
+                if buf.shape[0] < want:  # caller without the pad rows
+                    buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
+                buf = buf[:want]
                 raws = [torch.from_numpy(buf)] if self._linear else []
                 if stride is not None:
+                    lin = buf[: self.buf_size]
                     raws.append(torch.from_numpy(stride.prep_t(lin).reshape(-1).view(np.uint8)))
             with span("launch"):  # the plain kernels run here
                 total, payloads = self._scan(raws)
             return total, payloads, None
-        total, payloads = self._uploader.run(fill, self._scan, span)
+        i = self._uploader.free(span)
+        stagings = self._uploader.stagings[i]
+        with span("stage"):
+            if self._linear and buf is not stagings[0]:
+                n = min(buf.shape[0], want)
+                np.copyto(stagings[0][:n], buf[:n])
+                stagings[0][n:] = 0
+                self._slots[i].dirty = n
+                buf = stagings[0]
+            if stride is not None:
+                # the host transpose writes straight into the pinned slot
+                stride.prep_t(buf[: self.buf_size], out=stagings[-1].view(np.int32).reshape(
+                    stride.s_w, N_STREAMS))
+        total, payloads = self._uploader.run(self._scan, span)
         with span("launch"):
             host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
             host_total.copy_(total, non_blocking=True)
@@ -498,11 +557,14 @@ class CorpusPipeline:
         self.no_split = no_split
         self.span = span
         self.batches_run = 0
+        self.batches_inplace = 0  # filled straight into the buffer the scan reads
 
     def run(
         self, files: Iterable[Tuple[str, object]]
     ) -> Iterator[Tuple[str, object, np.ndarray]]:
-        """(path, data) pairs → (path, data, counts), input order."""
+        """(path, data) pairs → (path, data, counts), input order; each
+        batch's segments are copied from the data into the scanner's
+        slot (``DeviceScanner.claim``)."""
         for path, data, counts, _err in self._stream(files, by_size=False):
             yield path, data, counts
 
@@ -510,10 +572,11 @@ class CorpusPipeline:
         self, entries: Iterable[Tuple[str, int]], fill_threads: int = 8
     ) -> Iterator[Tuple[str, int, np.ndarray, int]]:
         """(path, size) pairs → (path, size, counts, errno), input
-        order. Buffers are filled by the native pread pool (gt_fill2)
-        — parallel, GIL-free — or the Python fallback; files are never
-        opened on the Python side, so a clean file costs a stat + N
-        preads and nothing else. errno != 0 marks a file that could
+        order. Each batch is filled by the native pread pool (gt_fill2)
+        — parallel, GIL-free — or the Python fallback, straight into the
+        scanner's slot (``DeviceScanner.claim``); files are never opened
+        on the Python side, so a clean file costs a stat + N preads and
+        nothing else. errno != 0 marks a file that could
         not be read (reference behavior: report and continue,
         grab.cc:267-268)."""
         self._fill_threads = fill_threads
@@ -563,34 +626,38 @@ class CorpusPipeline:
                 inflight[idx] = [
                     path, payload, np.zeros(nblocks, dtype=np.int32), False, 0,
                 ]
-                if by_size:
-                    yield from packer.feed_size(idx, size)
-                else:
-                    yield from packer.feed(idx, payload)
+                yield from packer.feed_size(idx, size)
                 packed_done.add(idx)
 
-        def fill_batch(batch):
-            """Populate an unfilled (descriptor-only) batch via the
-            pread pool; read failures mark the owning files."""
-            from grab_tpu_torch.ingest.native import fill_segments
-
-            jobs = [
-                (
-                    inflight[s.file_idx][0].encode("utf-8", "surrogateescape"),
-                    s.file_off,
-                    s.buf_off,
-                    s.length,
-                )
-                for s in batch.segments
-            ]
-            errs = fill_segments(
-                batch.buf, jobs, getattr(self, "_fill_threads", 8)
-            )
-            for seg, e in zip(batch.segments, errs):
-                if e:
-                    st = inflight[seg.file_idx]
-                    st[4] = st[4] or int(e)
-            batch.filled = True
+        def fill_batch(batch, slot):
+            """Fill a batch into ``slot``: from disk by the pread pool
+            (read failures mark the owning files) or from the files'
+            data. Both write each segment's whole extent; what earlier
+            batches left past the batch's end is zeroed (``stage``), so
+            the slot reads as a buffer zeroed for this batch alone."""
+            buf = slot.buf
+            slot.dirty = max(slot.dirty, batch.end)
+            with span("fill"):
+                if by_size:
+                    jobs = [
+                        (
+                            inflight[s.file_idx][0].encode("utf-8", "surrogateescape"),
+                            s.file_off,
+                            s.buf_off,
+                            s.length,
+                        )
+                        for s in batch.segments
+                    ]
+                    errs = fill_segments(buf, jobs, block, self._fill_threads)
+                    for seg, e in zip(batch.segments, errs):
+                        if e:
+                            st = inflight[seg.file_idx]
+                            st[4] = st[4] or int(e)
+                else:
+                    copy_segments(buf, batch.segments, lambda i: inflight[i][1], block)
+            with span("stage"):
+                buf[batch.end : slot.dirty] = 0
+                slot.dirty = batch.end
 
         def submit_batch(batch):
             """Queue one packer batch; a sharded scanner consumes
@@ -605,14 +672,16 @@ class CorpusPipeline:
             if not pending:
                 return
             self.batches_run += len(pending)
-            for b in pending:
-                if not b.filled:
-                    with span("fill"):
-                        fill_batch(b)
+            bufs = []
+            for lane, b in enumerate(pending):
+                slot = self.scanner.claim() if group_size == 1 else self.scanner.claim(lane)
+                fill_batch(b, slot)
+                self.batches_inplace += slot.inplace
+                bufs.append(slot.buf)
             if group_size == 1:
-                handles = self.scanner.submit(pending[0].buf)
+                handles = self.scanner.submit(bufs[0])
             else:
-                handles = self.scanner.submit_group([b.buf for b in pending])
+                handles = self.scanner.submit_group(bufs)
             submitted.append((list(pending), handles, frozenset(packed_done)))
             pending.clear()
             packed_done.clear()
@@ -642,10 +711,6 @@ class CorpusPipeline:
                         )
                 for i in done_set:
                     inflight[i][3] = True
-                # drop the group's last references here: freeing a filled
-                # buffer (munmap of its pages) is part of this span
-                batch = None
-                batches.clear()
 
         def drain():
             """The files that became final, in input order."""

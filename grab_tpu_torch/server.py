@@ -23,7 +23,11 @@ process's (GRAB_TPU_TORCH_DEVICE, default cuda). The cache counts its
 hits and misses; a request's ``--stats`` line says which it was
 (``scanner=hit|miss``; ``none`` for a host-only scan), the running
 totals so far (``cache=HITS/MISSES``) and the request's number
-(``req=``).
+(``req=``). Its ``pulls=N`` counts the batches whose flags left the
+device, and ``inplace=N`` the batches filled straight into the buffer
+the scan reads (the cached scanner's pinned upload slot): every batch,
+except where a stride member alone reads the batch (its host transpose
+into the slot).
 
 The operator's read of the start is the listening line on stderr:
 

@@ -220,7 +220,7 @@ def test_device_scanner_flags_match_reference(planted):
     interpret mode) on the same 64 KiB packer batches."""
     from grab_tpu.regex.compiler import compile_multi as ref_compile
     from grab_tpu.scan_pipeline import DeviceScanner as RefScanner
-    from grab_tpu_torch.ingest.packer import BatchPacker
+    from grab_tpu_torch.ingest.packer import BatchPacker, copy_segments
     from grab_tpu_torch.regex.compiler import compile_multi
     from grab_tpu_torch.scan_pipeline import DeviceScanner
 
@@ -229,12 +229,14 @@ def test_device_scanner_flags_match_reference(planted):
     ref = RefScanner(ref_compile(pats), buf_size=buf, pallas_interpret=True)
     port = DeviceScanner(compile_multi(pats), buf_size=buf, device="cpu")
     data = (planted / "sub" / "b.log").read_bytes()[: 9 * buf]
-    batches = list(BatchPacker(buf).feed(0, data))
+    batches = list(BatchPacker(buf).feed_size(0, len(data)))
     assert len(batches) >= 8
     flagged = 0
     for b in batches:
-        want = ref.resolve(ref.submit(b.buf))
-        got = port.resolve(port.submit(b.buf))
+        filled = np.zeros(buf + 4096, dtype=np.uint8)
+        copy_segments(filled, b.segments, lambda _i: data, 512)
+        want = ref.resolve(ref.submit(filled))
+        got = port.resolve(port.submit(filled))
         assert got.dtype == want.dtype and (got == want).all()
         flagged += int(got.sum())
     assert flagged > 0

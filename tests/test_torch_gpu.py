@@ -1187,3 +1187,58 @@ def test_request_spans_on_card(cuda, tmp_path, monkeypatch):
     t = tracefile.summarize(events)
     bare = tracefile.summarize([e for e in events if e.get("cat") != "gpu_user_annotation"])
     assert t.busy_us == bare.busy_us > 0 and not any(k in t.ops_us for k in PIPELINE_SPANS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2], ids=["one lane", "-n 2"])
+@pytest.mark.parametrize("pattern", ["linear", "stride-only"])
+@pytest.mark.parametrize("case", ["stale_tail", "padding", "shrunk"])
+def test_pinned_slot_fill_matches_cpu(cuda, tmp_path, monkeypatch, case, pattern, shards):
+    """tests/test_torch_fill.py's stale-slot sequences through the
+    pinned upload ring (1 MiB buffers; two lanes on one card for -n 2):
+    every buffer as submitted, its flags, stdout and cand_blocks equal
+    the CPU path's reused ring; a literal's batches are all filled in
+    place, a stride member's alone none."""
+    # by the file's directory, which pytest puts on sys.path for this
+    # package-less folder: a site-wide ``tests`` package may shadow ours
+    from _fill_cases import scan_tree, stats_field
+
+    out, line, tap = scan_tree(tmp_path / "card", case, pattern, shards, False, monkeypatch,
+                           device="cuda:0")
+    want_out, want_line, want = scan_tree(tmp_path / "cpu", case, pattern, shards, False,
+                                      monkeypatch)
+    assert out == want_out and out.count(b"\n") > 100
+    for got, exp in ((tap.bufs, want.bufs), (tap.flags, want.flags)):
+        assert [len(l) for l in got] == [len(l) for l in exp]
+        for got_lane, exp_lane in zip(got, exp):
+            for g, w in zip(got_lane, exp_lane):
+                assert np.array_equal(g, w)
+    assert stats_field(line, "cand_blocks") == stats_field(want_line, "cand_blocks")
+    assert tap.stale_claims >= 1
+    batches = stats_field(line, "batches")
+    assert batches >= 3 and stats_field(line, "inplace") == (batches if pattern == "linear" else 0)
+
+
+@pytest.mark.gpu
+def test_inplace_counts_every_batch_of_big_files(cuda, tmp_path, monkeypatch):
+    """A literal scan of big files at the card's 32 MiB buffer: every
+    batch is preread straight into its pinned upload slot."""
+    import io
+    import re
+
+    from grab_tpu_torch import cli
+
+    monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", "cuda")
+    rng = np.random.default_rng(11)
+    for i, mib in enumerate((40, 57, 9)):
+        n = (mib << 20) + 777 * i
+        data = rng.integers(97, 123, size=n, dtype=np.uint8)
+        data[::97] = 10
+        data[n - 40 : n - 32] = np.frombuffer(b"needleXY", dtype=np.uint8)
+        (tmp_path / f"f{i}.log").write_bytes(data.tobytes())
+    out, err = io.BytesIO(), io.StringIO()
+    assert cli.main(["--stats", "-r", "needleXY", str(tmp_path)], out=out, err=err) == 0
+    assert out.getvalue().count(b"needleXY") == 3
+    line = err.getvalue()
+    batches = int(re.search(r" batches=(\d+)", line)[1])
+    assert batches >= 4 and f" inplace={batches} " in line
