@@ -96,7 +96,8 @@ class CandidateSearcher:
 
     Contract: same result as ``matcher.search(data, lo, hi, alo, ahi)``,
     assuming the candidate index covers every true match position
-    (superset property, enforced by kernel tests)."""
+    (superset property, enforced by kernel tests). ``searched`` counts
+    the bytes of the windows handed to the matcher."""
 
     def __init__(
         self,
@@ -109,16 +110,21 @@ class CandidateSearcher:
         self.index = index
         self.line_narrow = line_narrow  # pattern cannot match \n
         self.max_len = max_len  # bounds flag→start distance when known
+        self.searched = 0
+
+    def _search(self, data, lo, hi, alo, ahi):
+        self.searched += hi - lo
+        return self.matcher.search(data, lo, hi, alo=alo, ahi=ahi)
 
     def __call__(self, data: bytes, lo: int, hi: int, alo: int, ahi: int):
         if self.index.counts is None:
-            return self.matcher.search(data, lo, hi, alo=alo, ahi=ahi)
+            return self._search(data, lo, hi, alo, ahi)
         if not self.line_narrow:
             if not self.index.any_in(lo, hi):
                 return None
             if self.max_len is None:
                 # flags bound no window: full remaining-window scan
-                return self.matcher.search(data, lo, hi, alo=alo, ahi=ahi)
+                return self._search(data, lo, hi, alo, ahi)
             # newline-capable but bounded: a flag marks a position
             # inside the match, so starts lie within max_len of a
             # flagged block — scan only those neighborhoods (was: one
@@ -130,7 +136,7 @@ class CandidateSearcher:
                 win_hi = min(hi, b_hi + M)
                 if win_lo >= win_hi:
                     continue
-                m = self.matcher.search(data, win_lo, win_hi, alo=alo, ahi=ahi)
+                m = self._search(data, win_lo, win_hi, alo, ahi)
                 if m is not None:
                     return m
                 pos = max(pos, win_hi)  # starts below win_hi cleared
@@ -146,7 +152,7 @@ class CandidateSearcher:
             win_hi = hi if nl < 0 else min(nl, hi)
             if win_lo >= win_hi:
                 continue
-            m = self.matcher.search(data, win_lo, win_hi, alo=alo, ahi=ahi)
+            m = self._search(data, win_lo, win_hi, alo, ahi)
             if m is not None:
                 return m
             pos = max(pos, win_hi)  # whole line(s) cleared
@@ -402,6 +408,7 @@ class ScanStats:
     spans: Dict[str, float] = field(default_factory=dict)  # name -> seconds
     pulls: int = 0  # batches whose payloads left the device
     inplace: int = 0  # batches filled straight into the buffer the scan reads
+    replay_bytes: int = 0  # bytes of the candidate windows the replay searched
     # hit | miss: the scan server's cache held the scanner, or built it
     # (set by server._EngineCache); none: not served through that cache
     scanner: str = "none"
@@ -451,7 +458,8 @@ class ScanStats:
             f" | req={self.request} compile={t('compile', 0.0):.4f}s "
             f"scanner={self.scanner}:{t('scanner', 0.0):.4f}s "
             + "".join(f"{k}={t(k, 0.0):.4f}s " for k in PIPELINE_SPANS)
-            + f"pulls={self.pulls} inplace={self.inplace} kernel_load={load_s:.4f}s/{built}/{loaded}"
+            + f"pulls={self.pulls} inplace={self.inplace} replay_bytes={self.replay_bytes} "
+            + f"kernel_load={load_s:.4f}s/{built}/{loaded}"
             + ("" if self.cache is None else f" cache={self.cache[0]}/{self.cache[1]}")
         )
 
@@ -696,6 +704,7 @@ class Engine:
         )
         replayer = ChunkReplayer(self.cfg.output, searcher, self.compiled.min_len)
         replayer.scan_buffer(path, data, emit)
+        self.stats.replay_bytes += searcher.searched
 
     def scan_corpus(
         self,

@@ -661,6 +661,160 @@ def prefix_class_sequences(node: Node, k: int) -> Optional[list]:
     return sorted(seqs)
 
 
+def first_mask(node: Node) -> Optional[int]:
+    """The bytes every match of ``node`` can start with, as a 256-bit
+    mask; None when it can match empty or its first byte is not known
+    statically (backreferences, calls)."""
+    if min_len(node) == 0:
+        return None
+    if isinstance(node, CharClass):
+        return node.mask
+    if isinstance(node, (Group, Repeat)):
+        return first_mask(node.node)  # a Repeat here has lo >= 1
+    if isinstance(node, (Alt, Cond, CondR)):
+        branches = node.branches if isinstance(node, Alt) else (node.yes, node.no)
+        masks = [first_mask(b) for b in branches]
+        if any(m is None for m in masks):
+            return None
+        out = 0
+        for m in masks:
+            out |= m
+        return out
+    if isinstance(node, Concat):
+        for p in node.parts:
+            if not isinstance(p, (Empty, Anchor, Look, Define)):
+                return first_mask(p)  # None when p can match empty
+    return None
+
+
+def _one_class(node: Node) -> Optional[int]:
+    """The mask of a repeat body that is one class (groups looked through)."""
+    while isinstance(node, Group):
+        node = node.node
+    return node.mask if isinstance(node, CharClass) else None
+
+
+def device_class_sequences(node: Node, k: int = 8) -> Optional[list]:
+    """Class-mask sequences covering every match's first bytes, as
+    ``prefix_class_sequences``, but carried past a pattern's first
+    repeat, so that the device member of a ``-H`` batch flags only where
+    a longer stretch of the pattern can start:
+
+    * a fixed repeat ``X{n}`` whose sequences each cover all of ``X``'s
+      match leaves the sequence open (``[0-9]{3}-[0-9]{4}``: 8 classes);
+    * an open repeat of one class ``C{lo,}`` / ``C{lo,hi}`` followed, in
+      its concatenation, by a part that cannot match empty gives ``lo``
+      copies of ``C`` and then one class, ``C`` ∪ the first byte of what
+      follows, and ends there (``qu+x``: ``q u [ux]``); with nothing
+      after it, or a part that can match empty, it ends after the
+      ``lo`` copies.
+
+    Each sequence is cut at ``k`` classes and is no longer than any
+    match it covers. None where no sequence set of at most
+    ``_MAX_CLASS_SEQS`` covers every match."""
+
+    def repeat(n, budget):
+        inner = walk(n.node, budget)
+        if inner is None:
+            return None
+        seqs = [((), True)]
+        for _ in range(n.lo):
+            if not any(ex and len(m) < k for m, ex in seqs):
+                return [(m, False) for m, _ in seqs]  # copies left over
+            nxt = []
+            for masks, ex in seqs:
+                if not ex or len(masks) >= k:
+                    nxt.append((masks, False))
+                    continue
+                for pm, pex in inner:
+                    cat = masks + pm
+                    nxt.append((cat[:k], pex and len(cat) <= k))
+            seqs = nxt
+            if len(seqs) > _MAX_CLASS_SEQS * 4:
+                return None
+        if n.hi != n.lo:
+            return [(m, False) for m, _ in seqs]
+        return seqs
+
+    def open_run(n, rest):
+        """An open repeat of one class, followed by ``rest``."""
+        c = _one_class(n.node)
+        follow = first_mask(Concat(tuple(rest))) if rest else None
+        masks = (c,) * min(n.lo, k)
+        if follow is not None:
+            masks = (masks + (c | follow,))[:k]
+        return [(masks, False)]
+
+    def walk(n, budget):
+        if budget <= 0:
+            return None
+        if isinstance(n, (Empty, Anchor, Look, Define)):
+            return [((), True)]
+        if isinstance(n, (Backref, Call)):
+            return None
+        if isinstance(n, CharClass):
+            return [((n.mask,), True)]
+        if isinstance(n, Group):
+            return walk(n.node, budget)
+        if isinstance(n, (Alt, Cond, CondR)):
+            branches = n.branches if isinstance(n, Alt) else (n.yes, n.no)
+            out = []
+            for b in branches:
+                r = walk(b, budget - len(out))
+                if r is None:
+                    return None
+                out.extend(r)
+                if len(out) > budget:
+                    return None
+            return out
+        if isinstance(n, Concat):
+            seqs = [((), True)]
+            parts = n.parts
+            for i, p in enumerate(parts):
+                if not any(ex and len(m) < k for m, ex in seqs):
+                    return [(m, False) for m, _ in seqs]  # parts left over
+                q = p
+                while isinstance(q, Group):
+                    q = q.node
+                if isinstance(q, Repeat) and q.hi != q.lo and _one_class(q.node) is not None:
+                    r = open_run(q, parts[i + 1 :])
+                else:
+                    r = walk(p, budget)
+                if r is None:
+                    return None
+                nxt = []
+                for masks, ex in seqs:
+                    if not ex or len(masks) >= k:
+                        nxt.append((masks, False))
+                        continue
+                    for pm, pex in r:
+                        cat = masks + pm
+                        nxt.append((cat[:k], pex and len(cat) <= k))
+                seqs = nxt
+                if len(seqs) > budget:
+                    return None
+            return seqs
+        if isinstance(n, Repeat):
+            if n.hi != n.lo and _one_class(n.node) is not None:
+                return open_run(n, ())
+            if n.lo == 0:
+                return [((), False)]
+            return repeat(n, budget)
+        raise TypeError(f"unknown node {n!r}")
+
+    r = walk(node, _MAX_CLASS_SEQS)
+    if r is None:
+        return None
+    seqs = set()
+    for masks, _ in r:
+        if len(masks) == 0:
+            return None  # some match may be empty/unconstrained
+        seqs.add(tuple(masks))
+    if not seqs or len(seqs) > _MAX_CLASS_SEQS:
+        return None
+    return sorted(seqs)
+
+
 def exact_literal(node: Node) -> Optional[bytes]:
     """The one byte string this AST matches, or None if it can match
     anything else (classes, alternations, repeats, anchors, backrefs).

@@ -69,6 +69,44 @@ def _as_bytes(p) -> bytes:
     return p.encode("utf-8") if isinstance(p, str) else bytes(p)
 
 
+def pattern_route(t: A.Node):
+    """How ``compile_multi`` covers one pattern of a batch: ("literals",
+    its mandatory literal alternatives), ("seqs", its class-mask
+    sequences) or (None, None), where nothing covers it."""
+    l = A.mandatory_literals(t)
+    if l and min(len(x) for x in l) >= 3 and len(l) <= 64:
+        return "literals", l
+    s = A.prefix_class_sequences(t, 8)
+    if s:
+        return "seqs", s
+    if l:
+        # weak/tiny factors and no sequences: a literal IS a class
+        # sequence of singleton classes — route it there so the
+        # literal kernels only ever see len >= 3 alternatives
+        return "seqs", [tuple(1 << b for b in x[:8]) for x in l]
+    return None, None
+
+
+def device_class_seqs(cp: "CompiledPattern") -> Optional[List[tuple]]:
+    """The class sequences of a literal ensemble's device member: for
+    each pattern ``compile_multi`` sent to sequences, its
+    ``ast.device_class_sequences`` (carried past the first repeat),
+    where the batch's set stays within 32 sequences and the rules give
+    any; else the compiler's own for that pattern. None where the batch
+    has no sequences."""
+    if not cp.class_seqs:
+        return None
+    plans = [set(plan) if route == "seqs" else set()
+             for route, plan in map(pattern_route, cp.asts)]
+    for i, t in enumerate(cp.asts):
+        if not plans[i]:
+            continue
+        longer = A.device_class_sequences(t, 8)
+        if longer and len(set().union(*plans[:i], longer, *plans[i + 1 :])) <= 32:
+            plans[i] = set(longer)
+    return sorted(set().union(*plans))
+
+
 def compile_multi(
     patterns,
     literal_mode: bool = False,
@@ -112,23 +150,14 @@ def compile_multi(
     seq_asts: List[A.Node] = []
     covered = True
     for t in asts:
-        l = A.mandatory_literals(t)
-        if l and min(len(x) for x in l) >= 3 and len(l) <= 64:
-            lits.extend(l)
-            continue
-        s = A.prefix_class_sequences(t, 8)
-        if s:
-            class_seqs.extend(s)
+        route, plan = pattern_route(t)
+        if route == "literals":
+            lits.extend(plan)
+        elif route == "seqs":
+            class_seqs.extend(plan)
             seq_asts.append(t)
-            continue
-        if l:
-            # weak/tiny factors and no sequences: a literal IS a class
-            # sequence of singleton classes — route it there so the
-            # literal kernels only ever see len >= 3 alternatives
-            class_seqs.extend(tuple(1 << b for b in x[:8]) for x in l)
-            seq_asts.append(t)
-            continue
-        covered = False
+        else:
+            covered = False
     lits = sorted(set(lits)) or None
     if lits is not None and len(lits) > 512:
         lits, covered = None, False

@@ -66,6 +66,7 @@ from grab_tpu_torch.ops.stridedfa import (
     stride_plan,
 )
 from grab_tpu_torch.ops.xorfilter import XorWordScanner
+from grab_tpu_torch.regex.compiler import device_class_seqs
 
 CANDIDATE_BLOCK = 512
 HALO = 0x1000  # reference overlap (grab.cc:151)
@@ -359,16 +360,18 @@ class DeviceScanner:
     def _alpha_eligible(plan) -> bool:
         return plan is not None and alpharun_eligible(plan[0], plan[1])
 
-    def _seq_scanner(self, cp, standalone: bool = False):
+    def _seq_scanner(self, cp, standalone: bool = False, member_seqs=None):
         """The member serving the sequence-routed patterns (the
         reference's ``_seq_scanner``): the union strided-DFA member when
         the sequences' automaton is bounded within the window reach and
         has a stride plan, the buffer is at least 1 MiB and, inside the
         literal ensemble, there are at least two sequences (one AND
         chain rides the fused pass almost free) and GRAB_TPU_SEQDFA is
-        not "0"; else the class-sequence word kernel. Inside the
-        ensemble the member absorbs the < 7-byte literals when their
-        union automaton plans no worse (``_shorts_absorbed``)."""
+        not "0"; else the class-sequence word kernel, over
+        ``member_seqs`` where given (the ensemble's device sequences),
+        else the compiler's. Inside the ensemble the member absorbs the
+        < 7-byte literals when their union automaton plans no worse
+        (``_shorts_absorbed``)."""
 
         def eligible(d, ml):
             return (
@@ -402,16 +405,20 @@ class DeviceScanner:
                 self._shorts_absorbed = True
                 return _StrideSeqMember(sds, smls, self.buf_size)
             return _StrideSeqMember(sd, sml, self.buf_size)
-        return ClassSeqScanner(seqs)
+        return ClassSeqScanner(member_seqs or seqs)
 
     def _literal_members(self, cp) -> list:
         """The literal ensemble (the reference's _build_pallas, literal
         mode): the fused single-pass scanner when it has two members or
         sits beside a stride member, else (and with GRAB_TPU_NO_FUSED=1)
-        one scanner per member."""
+        one scanner per member. Its class sequences are carried past
+        each pattern's first repeat (``device_class_seqs``), so that they
+        flag only where a longer stretch of a pattern can start; the
+        member's kind is chosen from the compiler's, as the reference's."""
         literals = [bytes(l) for l in cp.literals]
-        seqs = compile_sequences(cp.class_seqs) if cp.class_seqs else None
-        seq_member = self._seq_scanner(cp) if seqs else None
+        dev_seqs = device_class_seqs(cp)
+        seqs = compile_sequences(dev_seqs) if dev_seqs else None
+        seq_member = self._seq_scanner(cp, member_seqs=seqs) if seqs else None
         stride_seq = isinstance(seq_member, _StrideSeqMember)
         if os.environ.get("GRAB_TPU_NO_FUSED") != "1":
             fused_lits = (

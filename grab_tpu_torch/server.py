@@ -27,7 +27,8 @@ totals so far (``cache=HITS/MISSES``) and the request's number
 device, and ``inplace=N`` the batches filled straight into the buffer
 the scan reads (the cached scanner's pinned upload slot): every batch,
 except where a stride member alone reads the batch (its host transpose
-into the slot).
+into the slot); ``replay_bytes=N`` the bytes of the candidate windows
+the host replay searched.
 
 The operator's read of the start is the listening line on stderr:
 

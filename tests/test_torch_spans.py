@@ -152,8 +152,9 @@ def test_stats_line_keeps_its_fields(tree):
     assert m and float(m[1]) > 0
     got = _spans.spans(line)
     assert got["fill"] == round(st.spans["fill"], 4) and got["walk"] == float(m[1])
-    assert re.search(rb"scanner=none:[0-9.]+s .* pulls=\d+ inplace=%d kernel_load=0\.0000s/0/0\n"
-                     % st.device_batches, line)
+    assert re.search(rb"scanner=none:[0-9.]+s .* pulls=\d+ inplace=%d replay_bytes=%d "
+                     rb"kernel_load=0\.0000s/0/0\n" % (st.device_batches, st.replay_bytes), line)
+    assert st.replay_bytes > 0
 
 
 def test_trace_holds_the_spans_as_ranges(tree, tmp_path):
