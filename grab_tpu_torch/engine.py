@@ -34,6 +34,7 @@ Engine modes:
 
 from __future__ import annotations
 
+import math
 import mmap
 import os
 import sys
@@ -324,6 +325,59 @@ class _FactorSeededMatcher:
         return None
 
 
+def _class_rx(mask: int) -> bytes:
+    """A 256-bit byte-class mask as a bytes ``re`` class of \\xHH escapes."""
+    return b"[" + b"".join(b"\\x%02x" % c for c in range(256) if (mask >> c) & 1) + b"]"
+
+
+class _ClassGatedMatcher:
+    """Gate an exact matcher that has no literal factor behind its class
+    sequences (regex/ast.py device_class_sequences): every match's first
+    bytes satisfy one of them, and none is longer than a match it
+    covers. So a match starting in [lo, hi] puts an occurrence at its own
+    start, within the range one C ``re`` search covers; without one the
+    window holds no match, and no match starts before the first
+    occurrence, so the VM runs from there (leftmost-first is kept). The
+    VM still sees the whole buffer and the caller's subject window, so
+    anchors, \\b and lookbehind keep their context.
+
+    ``cleared`` counts the searches settled without the VM, ``passed``
+    those handed to it."""
+
+    def __init__(self, inner, seqs):
+        import re as _re
+
+        self.inner = inner
+        self.max_len = max(len(s) for s in seqs)
+        self.rx = _re.compile(
+            b"|".join(b"".join(_class_rx(m) for m in s) for s in seqs)
+        )
+        self.cleared = 0
+        self.passed = 0
+
+    @staticmethod
+    def selective(seqs) -> bool:
+        """False when the sequences let most byte positions through
+        (``.{0,2}[0-9]{11}`` gives one 255-byte class): the expected
+        share of positions that start an occurrence, each class taken
+        as its share of the 256 byte values, is half or more."""
+        return sum(math.prod(bin(m).count("1") / 256 for m in s) for s in seqs) < 0.5
+
+    def search(self, data, lo, hi, alo=None, ahi=None):
+        # an occurrence at a match's start s <= hi ends by s + max_len,
+        # and inside the match, whose extent the inner engine keeps
+        # within hi (the VM) or ahi (the backtracker, pcre2)
+        end = hi if ahi is None else max(hi, ahi)
+        m = self.rx.search(data, lo, min(end, hi + self.max_len))
+        if m is None or m.start() > hi:
+            self.cleared += 1
+            return None
+        self.passed += 1
+        return self.inner.search(
+            data, m.start(), hi, alo=lo if alo is None else alo, ahi=ahi
+        )
+
+
 class _WindowBoundedMatcher:
     """Clamp the subject end to the scan window: sound only when the
     pattern cannot match \\n and has no anchors/lookaround (then a match
@@ -409,6 +463,8 @@ class ScanStats:
     pulls: int = 0  # batches whose payloads left the device
     inplace: int = 0  # batches filled straight into the buffer the scan reads
     replay_bytes: int = 0  # bytes of the candidate windows the replay searched
+    # the replay's class-sequence gates: searches (cleared without the VM, passed to it)
+    seqgate: Tuple[int, int] = (0, 0)
     # hit | miss: the scan server's cache held the scanner, or built it
     # (set by server._EngineCache); none: not served through that cache
     scanner: str = "none"
@@ -458,6 +514,7 @@ class ScanStats:
             f" | req={self.request} compile={t('compile', 0.0):.4f}s "
             f"scanner={self.scanner}:{t('scanner', 0.0):.4f}s "
             + "".join(f"{k}={t(k, 0.0):.4f}s " for k in PIPELINE_SPANS)
+            + f"seqgate={self.seqgate[0]}/{self.seqgate[1]} "
             + f"pulls={self.pulls} inplace={self.inplace} replay_bytes={self.replay_bytes} "
             + f"kernel_load={load_s:.4f}s/{built}/{loaded}"
             + ("" if self.cache is None else f" cache={self.cache[0]}/{self.cache[1]}")
@@ -513,6 +570,11 @@ class Engine:
                 patterns, literal_mode=(self.cfg.mode == "literal")
             )
             self._exact = self._make_exact_matcher()
+            self._gates = [
+                m
+                for m in getattr(self._exact, "matchers", [self._exact])
+                if isinstance(m, _ClassGatedMatcher)
+            ]
             self._line_narrow = not any(
                 A.may_match_newline(t) for t in self.compiled.asts
             )
@@ -577,9 +639,11 @@ class Engine:
         # occurrence of ANY member (round 2 only gated singleton sets —
         # `l[imn]nus` got no gate and fell to the ~2 MB/s raw VM walk)
         facs = A.mandatory_literals(tree)
-        if not facs or len(facs) > 8:
-            return matcher
-        if any(len(f) < 2 for f in facs):
+        if not facs or len(facs) > 8 or any(len(f) < 2 for f in facs):
+            # no literal gate: gate on the match's first classes instead
+            seqs = A.device_class_sequences(tree)
+            if seqs and _ClassGatedMatcher.selective(seqs):
+                return _ClassGatedMatcher(matcher, seqs)
             return matcher
         mx = A.max_len(tree)
         if seeded and mx is not None and mx - min(len(f) for f in facs) <= 64:
@@ -705,6 +769,10 @@ class Engine:
         replayer = ChunkReplayer(self.cfg.output, searcher, self.compiled.min_len)
         replayer.scan_buffer(path, data, emit)
         self.stats.replay_bytes += searcher.searched
+        self.stats.seqgate = (
+            sum(g.cleared for g in self._gates),
+            sum(g.passed for g in self._gates),
+        )
 
     def scan_corpus(
         self,

@@ -28,7 +28,9 @@ device, and ``inplace=N`` the batches filled straight into the buffer
 the scan reads (the cached scanner's pinned upload slot): every batch,
 except where a stride member alone reads the batch (its host transpose
 into the slot); ``replay_bytes=N`` the bytes of the candidate windows
-the host replay searched.
+the host replay searched; ``seqgate=C/P`` the searches of the exact
+matchers gated by their class sequences, C settled without the VM and
+P handed to it.
 
 The operator's read of the start is the listening line on stderr:
 

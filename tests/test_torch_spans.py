@@ -155,6 +155,7 @@ def test_stats_line_keeps_its_fields(tree):
     assert re.search(rb"scanner=none:[0-9.]+s .* pulls=\d+ inplace=%d replay_bytes=%d "
                      rb"kernel_load=0\.0000s/0/0\n" % (st.device_batches, st.replay_bytes), line)
     assert st.replay_bytes > 0
+    assert re.search(rb" pull=[0-9.]+s seqgate=%d/%d pulls=\d+ " % st.seqgate, line)
 
 
 def test_trace_holds_the_spans_as_ranges(tree, tmp_path):
