@@ -1126,7 +1126,7 @@ def fused_sets(np, rng):
            for name, (lits, seqs) in sets.items()}
     lits = batch_literals(np)
     sc = DeviceScanner(compile_multi(lits + BATCH_REGEXES), buf_size=1 << 20,
-                       device="cpu").members[0]
+                       devices=["cpu"]).members[0]
     check(type(sc) is FusedEnsembleScanner, f"batch4: member {type(sc).__name__}")
     out["batch4"] = (sc, lits, None)
     return out
@@ -1397,7 +1397,7 @@ def phase_transpose_paths(torch, np, rng):
         log(f"run(words) on the linear upload == run_t(prep_t(buf)): {label} "
             f"(walks {int(n)}, {int(flags.sum())} flagged blocks)")
     pats = batch_literals(np) + BATCH_SEQS
-    ds = DeviceScanner(compile_multi(pats), buf_size=BUF, device="cuda")
+    ds = DeviceScanner(compile_multi(pats), buf_size=BUF, devices=["cuda"])
     member = ds._stride
     check(isinstance(member, _StrideSeqMember), "the batch's scanner has no stride member")
     words2d = np.zeros((ROWS + 8, 128), dtype="<i4")
@@ -1817,7 +1817,7 @@ def phase_routes(torch, np, trees, refs, tmp):
         check(rc == 0, f"{shown}: rc {rc}: {err}")
         sc = engines[-1]._get_scanner()
         got = [type(m).__name__ for m in sc.members]
-        check(sc.device.type == "cuda", f"{shown}: the scanner is not on the card")
+        check(sc.lanes[0].type == "cuda", f"{shown}: the scanner is not on the card")
         check(sc.mode == r["mode"] and got == r["members"],
               f"{shown}: route {sc.mode}/{got}, expected {r['mode']}/{r['members']}")
         for counter in r["counters"]:
@@ -1875,8 +1875,7 @@ def phase_groups(torch, np, trees, tree, tmp, outs):
     → (results, the stdout of ``-r GROUP_LITERAL mtree``)."""
     from grab_tpu_torch import cli
     from grab_tpu_torch.engine import Engine
-    from grab_tpu_torch.parallel.sharded import ShardedScanner
-    from grab_tpu_torch.scan_pipeline import DeviceScanner
+    from grab_tpu_torch.scan_pipeline import release_lanes, take_lanes
 
     engines = []
 
@@ -1899,15 +1898,15 @@ def phase_groups(torch, np, trees, tree, tmp, outs):
     res = {"routes": []}
     mtree = trees["mtree"][0]
     one, _, _, eng = run(["-r", GROUP_LITERAL, mtree])
-    check(len(one) > 0 and type(eng._get_scanner()) is DeviceScanner,
-          f"-r {GROUP_LITERAL} mtree: no output, or not the single-device scanner")
+    check(len(one) > 0 and len(eng._get_scanner().lanes) == 1,
+          f"-r {GROUP_LITERAL} mtree: no output, or not one lane")
     cards = torch.cuda.device_count()
     four, _, n4, eng = run(["-n", "4", "-r", GROUP_LITERAL, mtree])
     sc = eng._get_scanner()
     check(eng._effective_shards() == min(4, cards) and four == one and n4["corewords"] > 0,
           f"-n 4 on {cards} card(s): {eng._effective_shards()} shards, stdout "
           f"{'equal' if four == one else 'differs'}")
-    check(isinstance(sc, ShardedScanner) == (cards > 1), f"-n 4: scanner {type(sc).__name__}")
+    check(len(sc.lanes) == min(4, cards), f"-n 4: {len(sc.lanes)} lane(s)")
     log(f"-n 4 -r {GROUP_LITERAL} mtree on {cards} card(s): capped to {eng._effective_shards()} "
         f"shard(s), stdout == -n 1 ({len(one)} B)")
     res["cap"] = {"cards": cards, "shards": eng._effective_shards(), "stdout_bytes": len(one)}
@@ -1925,10 +1924,12 @@ def phase_groups(torch, np, trees, tree, tmp, outs):
         argv = ["-n", "2"] + flags + [pattern, root]
         out, wall, launches, eng = run(argv, device=TWO_LANES, scan_buf_size=buf)
         sc = eng._get_scanner()
-        check(isinstance(sc, ShardedScanner) and sc.group_size == 2 and len(sc.lanes) == 2,
-              f"-n 2 {key}: scanner {type(sc).__name__}")
-        check(all(l.device.type == "cuda" for l in sc.lanes)
-              and sc._streams[0] is not sc._streams[1], f"-n 2 {key}: lanes not on the card")
+        check(len(sc.lanes) == 2, f"-n 2 {key}: {len(sc.lanes)} lane(s)")
+        lanes = take_lanes(sc.lanes)  # the lanes the scan ran on, handed back at its end
+        release_lanes(lanes)
+        check(all(l.device.type == "cuda" for l in lanes)
+              and lanes[0].stream is None and lanes[1].stream is not None,
+              f"-n 2 {key}: lanes not on the card, or not on two streams")
         check(len(want) > 0 and out == want,
               f"-n 2 {key}: stdout ({len(out)} B) != -n 1 stdout ({len(want)} B)")
         for c in counted:
@@ -1958,7 +1959,7 @@ def phase_groups(torch, np, trees, tree, tmp, outs):
             walls[n].append(wall)
             if n == 2:
                 sc, st = eng._get_scanner(), eng.stats
-                check(isinstance(sc, ShardedScanner) and sc.payload_pulls == 0
+                check(len(sc.lanes) == 2 and sc.payload_pulls == 0
                       and launches["corewords"] == st.device_batches >= 4,
                       f"-n 2 miss scan: {sc.payload_pulls} payload pulls, launches "
                       f"{launches['corewords']}, batches {st.device_batches}")
@@ -2068,7 +2069,7 @@ def phase_server(torch, np, here, trees, tmp, outs, one_literal):
         cp = compile_multi(pats)
         res["compile_multi_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
-        DeviceScanner(cp, device="cuda")  # what the server's cache saves a request
+        DeviceScanner(cp, devices=["cuda"])  # what the server's cache saves a request
         res["scanner_build_s"] = time.perf_counter() - t1
         log(f"server: stdout == direct CLI for literal, -H batch4 (miss twice, hits once), miss, -n 4 "
             f"(capped) and a nonexistent path (exit 255)")

@@ -13,8 +13,9 @@ Package layout:
   csrc/           CUDA C++ kernel sources (sm_90a)
   ingest/         corpus walker + batch packer + native pread/walk library
   format/         reference-exact output grammar (copy)
-  scan_pipeline.py  DeviceScanner (device routing, uploads) + CorpusPipeline
-  parallel/       -n N: shard devices and the ShardedScanner (group submit)
+  scan_pipeline.py  DeviceScanner (device routing, 1..N lanes), the lanes'
+                  upload slots + CorpusPipeline
+  parallel/       -n N: shard devices, the runner, multi-host
   engine.py       orchestrator (the FileGrep equivalent)
   cli.py          `tpugrep` command-line front end
   server.py       scan server with warm scanners (`tpugrep --via <socket>`)

@@ -100,12 +100,9 @@ def engine_part(n: int, device: str) -> dict:
     engine must run n lanes (Engine caps -n N at the devices named,
     which would compare one lane with one lane). Both engines warm,
     the ratio of their walls is the min over two runs each."""
-    from grab_tpu_torch.parallel.sharded import ShardedScanner
-
     corpus = dryrun_corpus(n)
     eng_n, eng_1 = make_engine(n, device), make_engine(1, device)
-    sc = eng_n._get_scanner()
-    lanes = sc.n_shards if isinstance(sc, ShardedScanner) else 1
+    lanes = len(eng_n._get_scanner().lanes)
     if lanes != n:
         raise RuntimeError(f"-n {n} built {lanes} lane(s) on {device!r}")
     sharded_out = run_engine(eng_n, corpus)  # warm
@@ -199,7 +196,7 @@ def dryrun_multichip(n: int, device: Optional[str] = None, out=None) -> dict:
     a = engine_part(n, spec)
     print(json.dumps({"metric": "shard_orchestration_overhead_ratio", "value": a["ratio"],
                       "unit": "ratio", "n_shards": n, "devices": spec}), file=out)
-    print(f"dryrun_multichip OK (Engine/ShardedScanner): {n} shards, {a['lines']} output "
+    print(f"dryrun_multichip OK (Engine, {n} lanes): {n} shards, {a['lines']} output "
           f"lines, identical to -n 1", file=out)
     b = scan_step_part(devs)
     print(f"dryrun_multichip OK: {n} shards, summed candidates = {b['total']}, "

@@ -7,8 +7,8 @@ The scan runs on the CUDA card unless the caller asks for the CPU
 (``EngineConfig.device``, default from GRAB_TPU_TORCH_DEVICE, else
 "cuda"). Every plan the reference's single-device scanner serves has a
 device mode here; -n N scans groups of N buffers over the shard devices
-that the device setting names (parallel/sharded.py), capped at their
-number.
+that the device setting names, one lane each (scan_pipeline.DeviceScanner),
+capped at their number.
 
 Pipeline (the TPU restructuring of FileGrep::find,
 greppin src/grab.cc:131-239):
@@ -732,22 +732,11 @@ class Engine:
     def _get_scanner(self):
         # buffer size: the user's scan_buf_size or the device default
         if self._scanner is None:
-            n = self._effective_shards()
-            if n > 1:
-                from grab_tpu_torch.parallel.sharded import ShardedScanner
-
-                self._scanner = ShardedScanner(
-                    self.compiled,
-                    n,
-                    buf_size=self.cfg.scan_buf_size,
-                    devices=self.cfg.device,
-                )
-            else:
-                self._scanner = DeviceScanner(
-                    self.compiled,
-                    buf_size=self.cfg.scan_buf_size,
-                    device=resolve_devices(self.cfg.device)[0],
-                )
+            self._scanner = DeviceScanner(
+                self.compiled,
+                buf_size=self.cfg.scan_buf_size,
+                devices=resolve_devices(self.cfg.device)[: self._effective_shards()],
+            )
         return self._scanner
 
     def _effective_shards(self) -> int:

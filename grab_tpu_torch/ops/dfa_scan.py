@@ -126,7 +126,7 @@ def walk_class_table(dfa) -> Tuple[np.ndarray, np.ndarray]:
 
 class WalkTables:
     """One automaton's tables for the walk, built once on the host and
-    uploaded once per device (shared by the -n N replicas of a member):
+    uploaded once per device (shared by the -n N lanes of a plan):
     the plain version's byte table and accept mask, the kernel's class
     table (padded to 16 bytes) and class map."""
 

@@ -2,8 +2,8 @@
 
 The tree is walked once and its files go, in walk order, through the
 engine's CorpusPipeline, which submits N packer buffers per group to the
-ShardedScanner (one lane per shard device, parallel/sharded.py). The
-packer layout is the single-device one, so per-file output is emitted in
+scanner's N lanes (one per shard device, scan_pipeline.DeviceScanner).
+The packer layout is the single-device one, so per-file output is emitted in
 walk order and is byte-identical to -n 1. The function returns the bytes
 the walk handed to the scan, for the --stats rate.
 """
@@ -26,7 +26,7 @@ def run_parallel(
     want = max(1, n_shards)
     if engine.cfg.n_shards != want:
         engine.cfg.n_shards = want
-        built = getattr(engine._scanner, "n_shards", 1) if engine._scanner else None
+        built = len(engine._scanner.lanes) if engine._scanner else None
         if built is not None and built != engine._effective_shards():
             # a cached scanner built for another shard count must not
             # serve this scan

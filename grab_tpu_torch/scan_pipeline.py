@@ -30,8 +30,12 @@ device and their decoded flags unioned on the host:
     multi-stream walk (ops/dfa_scan.py, csrc/dfa_walk.cu).
 
 ``resolve_devices`` reads the device setting (one device, every
-visible card, or a list of shard devices); ``DeviceScanner.replica``
-puts a built plan on another shard device for parallel/sharded.py.
+visible card, or a list of shard devices); a ``DeviceScanner`` runs
+its plan over one lane per device it is given (``-n N``). A ``Lane``
+carries batches to its device: fill slots, pinned upload slots,
+streams. Lanes belong to the process, keyed by (device, lane index),
+and every cached plan shares them (``take_lanes``); a stream holds its
+lanes until it ends.
 
 ``CorpusPipeline`` is the reference's: its one-deep double buffering
 overlaps host packing of the next batch with the device's upload and
@@ -42,7 +46,6 @@ pack, fill, stage, launch, wait, pull) open per batch, never per file.
 
 from __future__ import annotations
 
-import copy
 import os
 from collections import deque
 from contextlib import nullcontext
@@ -142,54 +145,56 @@ def plan_refusal(cp) -> Optional[str]:
 class FillSlot:
     """A host buffer that batch after batch is filled into, and how far
     earlier batches wrote: every byte at and past ``dirty`` is zero. A
-    new slot's memory is not zeroed, so it starts dirty to its end.
-    ``inplace``: the scan reads the slot as filled, with no host copy
-    after the fill (the pinned upload slot, or on the CPU the buffer the
-    plain kernels read); a stride member's transpose out of it does not
-    count as such a read."""
+    new slot's memory is not zeroed, so it starts dirty to its end."""
 
-    __slots__ = ("buf", "dirty", "inplace")
+    __slots__ = ("buf", "dirty")
 
-    def __init__(self, buf: np.ndarray, inplace: bool):
+    def __init__(self, buf: np.ndarray):
         self.buf = buf
         self.dirty = buf.shape[0]
-        self.inplace = inplace
 
 
-class _PinnedUploader:
-    """Host → device uploads through a ring of pinned staging slots,
-    copied on a side stream so the copy is asynchronous to the host. A
-    slot holds one buffer per size in ``sizes`` (the linear words and,
-    beside a stride member, the transposed words).
+class Lane:
+    """One lane of the scan, on one device: what carries a batch there.
+    Lanes belong to the process, not to a plan (``take_lanes``): every
+    plan on a device fills and uploads through that device's lanes.
+
+    Its slots are kept by size, two deep; a size is allocated at its first use and
+    kept, so memory is bounded by the distinct sizes, not by the plans.
+    On the card a slot holds pinned staging buffers beside device
+    buffers; on the CPU, and for the linear buffer beside a stride
+    member alone, the lane keeps reused host buffers. A slot's
+    ``FillSlot.dirty`` mark outlives the plan that wrote it, so the
+    next plan on the slot zeroes exactly what that one left.
 
     Slot i's staging buffers are rewritten only after their previous
-    copy has completed (``free``), and its device buffers only after
+    upload has completed (``free``), and its device buffers only after
     the kernels that read them have run (``_consumed``), so a batch in
-    flight is never overwritten while CorpusPipeline fills the next one."""
+    flight is never overwritten while the next one is filled. The
+    uploads go on a side stream, asynchronous to the host; lane 0 runs
+    its kernels on the caller's current stream, lane i > 0 on a stream
+    of its own."""
 
     DEPTH = 2  # CorpusPipeline keeps at most two batches in flight
 
-    def __init__(self, sizes: Sequence[int], device: torch.device):
+    def __init__(self, device: torch.device, index: int):
         self.device = device
-        self._host = [
-            [torch.empty(n, dtype=torch.uint8, pin_memory=True) for n in sizes]
-            for _ in range(self.DEPTH)
-        ]
-        # the slots' pinned buffers as numpy arrays, one object each
-        self.stagings = [[h.numpy() for h in slot] for slot in self._host]
-        self._dev = [
-            [torch.empty(n, dtype=torch.uint8, device=device) for n in sizes]
-            for _ in range(self.DEPTH)
-        ]
+        self.busy = False  # held by an unfinished stream
+        cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if cuda and index else None
+        self._copy = torch.cuda.Stream(device) if cuda else None
+        # size -> (FillSlot over the pinned buffer, device buffer, pinned tensor)
+        self._pinned: List[Dict[int, tuple]] = [{} for _ in range(self.DEPTH)]
+        self._host: List[Dict[int, FillSlot]] = [{} for _ in range(self.DEPTH)]
         self._copied: List[Optional[torch.cuda.Event]] = [None] * self.DEPTH
         self._consumed: List[Optional[torch.cuda.Event]] = [None] * self.DEPTH
-        self._stream = torch.cuda.Stream(device)
-        self._next = 0
+        self._next = 0  # the pinned slot ``upload`` takes next
+        self._host_next = 0  # the host slot ``host`` hands out next
 
     def free(self, span) -> int:
-        """The index of the slot that ``run`` uploads next, once its
-        previous upload has completed (waited for under ``wait``): its
-        ``stagings`` may be written from then on."""
+        """The index of the pinned slot that ``upload`` takes next, once
+        its previous upload has completed (waited for under ``wait``):
+        its staging buffers may be written from then on."""
         i = self._next
         if self._copied[i] is not None:
             with span("wait"):
@@ -197,28 +202,74 @@ class _PinnedUploader:
             self._copied[i] = None
         return i
 
-    def run(self, fn, span):
-        """Upload the slot that ``free`` handed out, as the caller wrote
-        it, and launch ``fn(devs)`` on the current stream after the
-        copies. ``span``: the request's recorder."""
+    def pinned(self, i: int, size: int) -> FillSlot:
+        """Pinned slot i's staging buffer of ``size`` bytes."""
+        got = self._pinned[i].get(size)
+        if got is None:
+            host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            dev = torch.empty(size, dtype=torch.uint8, device=self.device)
+            got = self._pinned[i][size] = (FillSlot(host.numpy()), dev, host)
+        return got[0]
+
+    def host(self, size: int) -> FillSlot:
+        """The next of the two reused host buffers of ``size`` bytes."""
+        slots = self._host[self._host_next]
+        self._host_next = (self._host_next + 1) % self.DEPTH
+        if size not in slots:
+            slots[size] = FillSlot(np.empty(size, dtype=np.uint8))
+        return slots[size]
+
+    def upload(self, sizes: Sequence[int], fn, span):
+        """Upload the pinned slot that ``free`` handed out (its buffers
+        of ``sizes``, as the caller wrote them) and launch ``fn(devs)``
+        on the current stream after the copies. ``span``: the request's
+        recorder."""
         i = self.free(span)
         self._next = (i + 1) % self.DEPTH
         with span("launch"):
             compute = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._stream):
+            devs = []
+            with torch.cuda.stream(self._copy):
                 if self._consumed[i] is not None:
-                    self._stream.wait_event(self._consumed[i])
-                for d, h in zip(self._dev[i], self._host[i]):
-                    d.copy_(h, non_blocking=True)
+                    self._copy.wait_event(self._consumed[i])
+                for n in sizes:
+                    _slot, dev, host = self._pinned[i][n]
+                    dev.copy_(host, non_blocking=True)
+                    devs.append(dev)
                 copied = torch.cuda.Event()
-                copied.record(self._stream)
+                copied.record(self._copy)
             self._copied[i] = copied
             compute.wait_event(copied)
-            out = fn(self._dev[i])
+            out = fn(devs)
             consumed = torch.cuda.Event()
             consumed.record(compute)
             self._consumed[i] = consumed
         return out
+
+
+_LANES: Dict[Tuple[torch.device, int], List[Lane]] = {}
+
+
+def take_lanes(devices: Sequence[torch.device]) -> List[Lane]:
+    """A lane for each of ``devices``, lane i from the process's pool
+    under (device, i): the first lane there that no unfinished stream
+    holds, else a new one, kept from then on. Hand them back with
+    ``release_lanes``."""
+    lanes = []
+    for i, dev in enumerate(devices):
+        pool = _LANES.setdefault((dev, i), [])
+        lane = next((l for l in pool if not l.busy), None)
+        if lane is None:
+            lane = Lane(dev, i)
+            pool.append(lane)
+        lane.busy = True
+        lanes.append(lane)
+    return lanes
+
+
+def release_lanes(lanes: Sequence[Lane]) -> None:
+    for lane in lanes:
+        lane.busy = False
 
 
 class _StrideSeqMember:
@@ -267,9 +318,26 @@ class _StrideSeqMember:
 
 
 class DeviceScanner:
-    """Fixed-shape candidate scan of packer buffers on one device."""
+    """Fixed-shape candidate scan of packer buffers: a compiled plan
+    (``mode``, ``members`` and their tables) over one lane per entry of
+    ``devices`` (``lanes``: a lane's device; one may repeat).
 
-    group_size = 1  # batches consumed per submit
+    With N lanes (``-n N``, the GPU equivalent of the reference's
+    multicore orchestrator, greppin src/main.cc:86-100, 163-230: round-
+    robin file striding across N pinned threads, one compiled pattern
+    per thread) the plan is built once: the members' host tables are
+    common, their device tables are uploaded once per device. The JAX
+    package runs one shard_map program over a device mesh with a psum
+    for the group's count and zero-padded shards for short groups; none
+    of that is carried over. Here ``submit`` takes up to N packer
+    buffers and queues each buffer's uploads and kernels on its lane
+    without waiting; a short group (the stream's tail) simply uses the
+    first lanes. Each lane's count lands in pinned host memory behind
+    its own event, so a clean group (the dominant case on miss-heavy
+    scans) is resolved from N counts and pulls no payload; a lane's
+    flags leave its device only when its own count is nonzero. The
+    packer layout is untouched, only submission is grouped, so -n N
+    output is byte-identical to -n 1; every mode shards the same way."""
 
     def __init__(
         self,
@@ -277,10 +345,12 @@ class DeviceScanner:
         buf_size: Optional[int] = None,
         block: int = CANDIDATE_BLOCK,
         stream_seg: int = 32768,
-        device="cuda",
+        devices: Sequence = ("cuda",),
     ):
-        self.device = resolve_device(device)
-        on_gpu = self.device.type == "cuda"
+        self.lanes = [resolve_device(d) for d in devices]
+        if not self.lanes:
+            raise ValueError("a scanner needs at least one device")
+        on_gpu = self.lanes[0].type == "cuda"
         if buf_size is None:
             # the reference's sizes: 32 MiB on an accelerator, 2 MiB on
             # the CPU (not yet tuned for the H100)
@@ -322,39 +392,18 @@ class DeviceScanner:
         self._stride = next(
             (m for m in self.members if getattr(m, "wants_transposed", False)), None
         )
-        self._linear = any(m is not self._stride for m in self.members)
+        # a member reads the linear words: the slot ``claim`` hands out
+        # is the buffer the scan reads, filled in place
+        self.linear = any(m is not self._stride for m in self.members)
         self._want = buf_size + PAD_ROWS * LANES * 4
-        sizes = [self._want] if self._linear else []
+        sizes = [self._want] if self.linear else []
         if self._stride is not None:
             sizes.append(self._stride.s_w * N_STREAMS * 4)
-        self._sizes = sizes
-        self._set_ring(on_gpu)
+        self._sizes = sizes  # the pinned buffers a batch uploads
+        self._tables_on = set()  # devices whose tables are known uploaded
         self.payload_pulls = 0  # resolves that pulled the members' payloads
         # the span recorder of the scan in progress (CorpusPipeline sets it)
         self.span = no_span
-
-    def _set_ring(self, on_gpu: bool) -> None:
-        """This scanner's own upload ring and fill slots: the pinned
-        linear slots where a member reads the linear words on the card,
-        else reused host buffers (made at first ``claim``)."""
-        self._uploader = _PinnedUploader(self._sizes, self.device) if on_gpu else None
-        self._slots: List[FillSlot] = []
-        if self._uploader is not None and self._linear:
-            self._slots = [FillSlot(st[0], True) for st in self._uploader.stagings]
-        self._ring: Optional[List[FillSlot]] = None
-        self._ring_next = 0
-
-    def replica(self, device) -> "DeviceScanner":
-        """The same plan on another device (or once more on this one):
-        the members and their host tables are shared (their device
-        tables are kept per device), the upload ring and the counters
-        are the replica's own."""
-        other = copy.copy(self)
-        other.device = resolve_device(device)
-        other._set_ring(other.device.type == "cuda")
-        other.payload_pulls = 0
-        other.span = no_span
-        return other
 
     @staticmethod
     def _alpha_eligible(plan) -> bool:
@@ -445,7 +494,7 @@ class DeviceScanner:
         """(total int32 [1], payloads) of one batch's uploaded buffers
         (uint8: the linear words when a member reads them, then the
         transposed words beside a stride member)."""
-        lin = devs[0] if self._linear else None
+        lin = devs[0] if self.linear else None
         words2d = lin.view(torch.int32).view(-1, LANES) if lin is not None else None
         total, payloads = None, []
         for m in self.members:
@@ -460,70 +509,86 @@ class DeviceScanner:
             payloads.append(pk)
         return total, payloads
 
-    def claim(self) -> FillSlot:
-        """The slot the next submitted batch is filled into: where a
-        member reads the linear words on the card, the free pinned upload
+    def claim(self, lane: Lane) -> FillSlot:
+        """The slot ``lane``'s next batch is filled into: where a member
+        reads the linear words on the card, the lane's free pinned upload
         slot (waited for under ``wait``), which ``submit`` then uploads
-        with no host copy; else one of two reused host buffers, which the
-        plain kernels read on the CPU, or which a stride member's host
-        transpose reads into the pinned slot."""
-        if self._slots:
-            return self._slots[self._uploader.free(self.span)]
-        if self._ring is None:
-            self._ring = [
-                FillSlot(np.empty(self._want, dtype=np.uint8), self._linear)
-                for _ in range(_PinnedUploader.DEPTH)
-            ]
-        slot = self._ring[self._ring_next]
-        self._ring_next = (self._ring_next + 1) % len(self._ring)
-        return slot
+        with no host copy; else one of the lane's two reused host
+        buffers, which the plain kernels read on the CPU, or which a
+        stride member's host transpose reads into the pinned slot."""
+        if self.linear and lane.device.type == "cuda":
+            return lane.pinned(lane.free(self.span), self._want)
+        return lane.host(self._want)
 
-    def submit(self, buf: np.ndarray):
-        """Start the scan of one filled buffer: a slot's from ``claim``,
-        read where it lies, or any other (copied into the pinned slot on
-        the card; a shorter one reads as zero-padded). Returns (total,
-        payloads, ready). On the GPU the uploads, the kernels and the
-        count's copy into pinned host memory are queued asynchronously
-        on the device's current stream, so the host goes on filling the
-        next batch; ``ready`` marks the count's arrival (None on the
-        CPU)."""
+    def submit(self, lanes: Sequence[Lane], bufs: Sequence[np.ndarray]) -> list:
+        """Start the scans of 1..len(lanes) filled buffers, buffer k on
+        lane k, without waiting for any of them → a handle per buffer
+        for ``resolve``. A buffer is a slot's from ``claim``, read where
+        it lies, or any other (copied into the pinned slot on the card;
+        a shorter one reads as zero-padded). On the GPU the uploads, the
+        kernels and the count's copy into pinned host memory are queued
+        asynchronously on the lane's stream, so the host goes on filling
+        the next batch."""
+        if not 0 < len(bufs) <= len(lanes):
+            raise ValueError(f"a group holds 1..{len(lanes)} buffers, got {len(bufs)}")
+        handles = []
+        for lane, buf in zip(lanes, bufs):
+            with torch.cuda.stream(lane.stream) if lane.stream is not None else nullcontext():
+                handles.append(self._submit(lane, buf))
+                if len(self.lanes) > 1 and lane.device.type == "cuda" and (
+                    lane.device not in self._tables_on
+                ):
+                    # the members upload their tables at first use, on this
+                    # lane's stream: the plan's lanes on other streams must
+                    # not read them before they have arrived
+                    with self.span("wait"):
+                        torch.cuda.current_stream(lane.device).synchronize()
+                    self._tables_on.add(lane.device)
+        return handles
+
+    def _submit(self, lane: Lane, buf: np.ndarray):
+        """(lane, total, payloads, ready) of one buffer's scan; ``ready``
+        marks the count's arrival (None on the CPU)."""
         span = self.span
         want = self._want
         stride = self._stride
-        if self._uploader is None:
+        if lane.device.type != "cuda":
             with span("stage"):
                 if buf.shape[0] < want:  # caller without the pad rows
                     buf = np.concatenate([buf, np.zeros(want - buf.shape[0], dtype=np.uint8)])
                 buf = buf[:want]
-                raws = [torch.from_numpy(buf)] if self._linear else []
+                raws = [torch.from_numpy(buf)] if self.linear else []
                 if stride is not None:
                     lin = buf[: self.buf_size]
                     raws.append(torch.from_numpy(stride.prep_t(lin).reshape(-1).view(np.uint8)))
             with span("launch"):  # the plain kernels run here
                 total, payloads = self._scan(raws)
-            return total, payloads, None
-        i = self._uploader.free(span)
-        stagings = self._uploader.stagings[i]
+            return lane, total, payloads, None
+        i = lane.free(span)
         with span("stage"):
-            if self._linear and buf is not stagings[0]:
-                n = min(buf.shape[0], want)
-                np.copyto(stagings[0][:n], buf[:n])
-                stagings[0][n:] = 0
-                self._slots[i].dirty = n
-                buf = stagings[0]
+            if self.linear:
+                slot = lane.pinned(i, want)
+                if buf is not slot.buf:
+                    n = min(buf.shape[0], want)
+                    np.copyto(slot.buf[:n], buf[:n])
+                    slot.buf[n:] = 0
+                    slot.dirty = n
+                    buf = slot.buf
             if stride is not None:
                 # the host transpose writes straight into the pinned slot
-                stride.prep_t(buf[: self.buf_size], out=stagings[-1].view(np.int32).reshape(
+                t = lane.pinned(i, self._sizes[-1])
+                stride.prep_t(buf[: self.buf_size], out=t.buf.view(np.int32).reshape(
                     stride.s_w, N_STREAMS))
-        total, payloads = self._uploader.run(self._scan, span)
+                t.dirty = t.buf.shape[0]
+        total, payloads = lane.upload(self._sizes, self._scan, span)
         with span("launch"):
             host_total = torch.empty(total.shape, dtype=total.dtype, pin_memory=True)
             host_total.copy_(total, non_blocking=True)
             ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-        return host_total, payloads, ready
+            ready.record(torch.cuda.current_stream(lane.device))
+        return lane, host_total, payloads, ready
 
-    def resolve(self, handles) -> np.ndarray:
+    def resolve(self, handle) -> np.ndarray:
         """Wait for a submitted scan → int32 [buf_size/block] 0/1 flags.
         A clean batch costs one 4-byte pull, waited for by its own
         event, not by a sync of the batches queued after it; the
@@ -531,7 +596,7 @@ class DeviceScanner:
         leave the device only when the summed count is nonzero, and
         their decoded flags are unioned."""
         nb = self.buf_size // self.block
-        total, payloads, ready = handles
+        _lane, total, payloads, ready = handle
         span = self.span
         if ready is not None:
             with span("wait"):
@@ -546,14 +611,21 @@ class DeviceScanner:
         return flags
 
     def scan(self, buf: np.ndarray) -> np.ndarray:
-        return self.resolve(self.submit(buf))
+        """One buffer's flags, on a lane of the first device held for
+        the call."""
+        lanes = take_lanes(self.lanes[:1])
+        try:
+            return self.resolve(self.submit(lanes, [buf])[0])
+        finally:
+            release_lanes(lanes)
 
 
 class CorpusPipeline:
     """Streams (path, data) pairs through the packer + device scanner,
     yielding (path, data, counts) in input order with bounded memory.
     ``span``: the request's span recorder (``engine.ScanStats.span``),
-    lent to the scanner while a stream runs."""
+    lent to the scanner while a stream runs. A stream holds a lane per
+    device of the scanner from its first item to its end."""
 
     def __init__(
         self, scanner: DeviceScanner, halo: int = HALO, no_split: bool = False,
@@ -570,7 +642,7 @@ class CorpusPipeline:
         self, files: Iterable[Tuple[str, object]]
     ) -> Iterator[Tuple[str, object, np.ndarray]]:
         """(path, data) pairs → (path, data, counts), input order; each
-        batch's segments are copied from the data into the scanner's
+        batch's segments are copied from the data into a lane's
         slot (``DeviceScanner.claim``)."""
         for path, data, counts, _err in self._stream(files, by_size=False):
             yield path, data, counts
@@ -581,7 +653,7 @@ class CorpusPipeline:
         """(path, size) pairs → (path, size, counts, errno), input
         order. Each batch is filled by the native pread pool (gt_fill2)
         — parallel, GIL-free — or the Python fallback, straight into the
-        scanner's slot (``DeviceScanner.claim``); files are never opened
+        lane's slot (``DeviceScanner.claim``); files are never opened
         on the Python side, so a clean file costs a stat + N preads and
         nothing else. errno != 0 marks a file that could
         not be read (reference behavior: report and continue,
@@ -593,9 +665,9 @@ class CorpusPipeline:
         self, items: Iterable[Tuple[str, object]], by_size: bool
     ) -> Iterator[Tuple[str, object, np.ndarray, int]]:
         span = self.span
-        block = self.scanner.block
-        buf_size = self.scanner.buf_size
-        group_size = getattr(self.scanner, "group_size", 1)
+        scanner = self.scanner
+        block = scanner.block
+        buf_size = scanner.buf_size
         with span("pack"):
             packer = BatchPacker(buf_size, block, self.halo, no_split=self.no_split)
         # in-flight bookkeeping, keyed by file index
@@ -604,7 +676,7 @@ class CorpusPipeline:
         # double buffering: submitted batches resolve one flush later,
         # so device upload+scan overlap host packing of the next batch
         submitted = deque()  # (batches, handles, files_done_before_group)
-        pending: List = []  # batches awaiting a full shard group
+        pending: List = []  # batches awaiting a full group, one per lane
         emitted = 0
         total = 0
         walk = iter(items)
@@ -667,12 +739,11 @@ class CorpusPipeline:
                 slot.dirty = batch.end
 
         def submit_batch(batch):
-            """Queue one packer batch; a sharded scanner consumes
-            group_size batches per device step (one per mesh shard —
-            the data-parallel axis of main.cc:86-100), a single-device
-            scanner submits immediately."""
+            """Queue one packer batch; the scanner consumes a batch per
+            lane per device step (the data-parallel axis of
+            main.cc:86-100), so a one-lane scanner submits at once."""
             pending.append(batch)
-            if len(pending) >= group_size:
+            if len(pending) >= len(lanes):
                 flush_group()
 
         def flush_group():
@@ -680,15 +751,13 @@ class CorpusPipeline:
                 return
             self.batches_run += len(pending)
             bufs = []
-            for lane, b in enumerate(pending):
-                slot = self.scanner.claim() if group_size == 1 else self.scanner.claim(lane)
+            for lane, b in zip(lanes, pending):
+                slot = scanner.claim(lane)
                 fill_batch(b, slot)
-                self.batches_inplace += slot.inplace
                 bufs.append(slot.buf)
-            if group_size == 1:
-                handles = self.scanner.submit(bufs[0])
-            else:
-                handles = self.scanner.submit_group(bufs)
+            if scanner.linear:
+                self.batches_inplace += len(bufs)
+            handles = scanner.submit(lanes, bufs)
             submitted.append((list(pending), handles, frozenset(packed_done)))
             pending.clear()
             packed_done.clear()
@@ -700,10 +769,7 @@ class CorpusPipeline:
             into the owning files; files fully packed before that group
             became final once it is applied."""
             batches, handles, done_set = submitted.popleft()
-            if group_size == 1:
-                counts_list = [self.scanner.resolve(handles)]
-            else:
-                counts_list = self.scanner.resolve_group(handles)
+            counts_list = [scanner.resolve(h) for h in handles]
             with span("pull"):
                 for batch, counts in zip(batches, counts_list):
                     for seg in batch.segments:
@@ -730,7 +796,8 @@ class CorpusPipeline:
                     emitted += 1
             return done
 
-        self.scanner.span = span
+        lanes = take_lanes(scanner.lanes)
+        scanner.span = span
         try:
             while True:
                 with span("walk"):
@@ -757,4 +824,5 @@ class CorpusPipeline:
             packed_done.clear()
             yield from drain()
         finally:
-            self.scanner.span = no_span
+            release_lanes(lanes)
+            scanner.span = no_span

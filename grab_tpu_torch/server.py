@@ -15,17 +15,20 @@ Protocol (unix stream socket):
               travels as frames tagged by a leading 0x01 byte (stdout
               frames lead with 0x00).
 
-Device scanners (tables, upload rings, streams) are cached across
-requests keyed by (patterns, mode, buffer size, device setting,
+Plans (``DeviceScanner``: which kernels, and their tables) are cached
+across requests keyed by (patterns, mode, buffer size, device setting,
 effective shards); the patterns are compiled again for every request,
-and output flags are per-request. The scan device is the server
+and output flags are per-request. The upload rings and streams belong
+to the device lanes (``scan_pipeline.Lane``), which every cached plan
+shares, so a miss builds tables, not a ring, and the server's memory
+does not grow with the plans it has seen. The scan device is the server
 process's (GRAB_TPU_TORCH_DEVICE, default cuda). The cache counts its
 hits and misses; a request's ``--stats`` line says which it was
 (``scanner=hit|miss``; ``none`` for a host-only scan), the running
 totals so far (``cache=HITS/MISSES``) and the request's number
 (``req=``). Its ``pulls=N`` counts the batches whose flags left the
 device, and ``inplace=N`` the batches filled straight into the buffer
-the scan reads (the cached scanner's pinned upload slot): every batch,
+the scan reads (the lane's pinned upload slot): every batch,
 except where a stride member alone reads the batch (its host transpose
 into the slot); ``replay_bytes=N`` the bytes of the candidate windows
 the host replay searched; ``seqgate=C/P`` the searches of the exact

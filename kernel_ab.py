@@ -112,8 +112,9 @@ def fused_times(rng, dev):
     longs = cs.long_literals(np, rng, 100)
     shorts = [bytes(rng.integers(97, 123, size=int(rng.integers(3, 7)), dtype=np.uint8))
               for _ in range(60)]
+    # the default device: the members are the same on every device
     batch4 = DeviceScanner(compile_multi(cs.batch_literals(np) + cs.BATCH_REGEXES),
-                           buf_size=1 << 20, device="cpu").members[0]
+                           buf_size=1 << 20).members[0]
     sets = {
         "100 long + 1 seq": fu.FusedEnsembleScanner(longs, one),
         "60 short + 40 long + 3 seqs": fu.FusedEnsembleScanner(shorts + longs[:40], three),

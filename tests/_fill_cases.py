@@ -1,8 +1,8 @@
 """The stale-slot sequences that tests/test_torch_fill.py (CPU) and
 tests/test_torch_gpu.py (the card's pinned ring) drive through the scan
 pipeline's reused fill slots: trees whose batches land in a slot that an
-earlier batch wrote, a tap on DeviceScanner that records what each batch
-submitted and resolved, and a ``--stats -r`` scan of such a tree. No
+earlier batch wrote, a tap on DeviceScanner that records what each lane's
+batches submitted and resolved, and a ``--stats -r`` scan of such a tree. No
 import of the ``tests`` package, so that the card's test run, which
 imports this module by its file's directory, finds it."""
 
@@ -59,41 +59,43 @@ def write_tree(root, case: str):
 
 
 class Tap:
-    """Records, per scanner in order of first use, a copy of every
-    buffer submitted and the flags resolved from it; counts the claims
-    whose slot held bytes past the batch's end. With ``fresh`` every
-    claim hands out a new zeroed buffer instead of the scanner's ring."""
+    """Records, per lane in order of first use, a copy of every buffer
+    submitted and the flags resolved from it; counts the claims whose
+    slot held bytes past the batch's end. With ``fresh`` every claim
+    hands out a new zeroed buffer instead of the lane's slot."""
 
     def __init__(self, monkeypatch, fresh: bool):
         self.bufs, self.flags, self.stale_claims = [], [], 0
-        order, claimed = {}, {}
+        self.lanes = []  # the lane of each record, in order of first use
+        claimed = {}
         claim, submit, resolve = DeviceScanner.claim, DeviceScanner.submit, DeviceScanner.resolve
 
-        def lane(sc):
-            if id(sc) not in order:
-                order[id(sc)] = len(order)
+        def record(lane):
+            if not any(l is lane for l in self.lanes):
+                self.lanes.append(lane)
                 self.bufs.append([])
                 self.flags.append([])
-            return order[id(sc)]
+            return next(i for i, l in enumerate(self.lanes) if l is lane)
 
-        def tap_claim(sc):
+        def tap_claim(sc, lane):
             if fresh:
-                slot = FillSlot(np.zeros(sc._want, dtype=np.uint8), sc._linear)
+                slot = FillSlot(np.zeros(sc._want, dtype=np.uint8))
                 slot.dirty = 0
             else:
-                slot = claim(sc)
+                slot = claim(sc, lane)
             claimed[id(slot.buf)] = (slot, slot.dirty)
             return slot
 
-        def tap_submit(sc, buf):
-            slot, before = claimed.pop(id(buf))
-            self.stale_claims += before > slot.dirty
-            self.bufs[lane(sc)].append(buf.copy())
-            return submit(sc, buf)
+        def tap_submit(sc, lanes, bufs):
+            for lane, buf in zip(lanes, bufs):
+                slot, before = claimed.pop(id(buf))
+                self.stale_claims += before > slot.dirty
+                self.bufs[record(lane)].append(buf.copy())
+            return submit(sc, lanes, bufs)
 
-        def tap_resolve(sc, handles):
-            flags = resolve(sc, handles)
-            self.flags[lane(sc)].append(flags.copy())
+        def tap_resolve(sc, handle):
+            flags = resolve(sc, handle)
+            self.flags[record(handle[0])].append(flags.copy())
             return flags
 
         monkeypatch.setattr(DeviceScanner, "claim", tap_claim)

@@ -161,7 +161,7 @@ def test_alpha_flags_match_reference(pattern, mode, buf_size):
     rcp, pcp = ref_compile([pattern]), compile_multi([pattern])
     assert pcp.alpha_plan == rcp.alpha_plan and pcp.alpha_plan is not None
     r = RefScanner(rcp, buf_size=buf_size, pallas_interpret=True)
-    p = DeviceScanner(pcp, buf_size=buf_size, device="cpu")
+    p = DeviceScanner(pcp, buf_size=buf_size, devices=["cpu"])
     assert r.mode == p.mode == "alpha"
     rm, pm = r._cw_list[0], p.members[0]
     assert type(pm).__name__ == type(rm).__name__ == "AlphaRunScanner"

@@ -227,7 +227,7 @@ def test_device_scanner_flags_match_reference(planted):
     buf = 64 << 10
     pats = [b"l[imn]nus"]
     ref = RefScanner(ref_compile(pats), buf_size=buf, pallas_interpret=True)
-    port = DeviceScanner(compile_multi(pats), buf_size=buf, device="cpu")
+    port = DeviceScanner(compile_multi(pats), buf_size=buf, devices=["cpu"])
     data = (planted / "sub" / "b.log").read_bytes()[: 9 * buf]
     batches = list(BatchPacker(buf).feed_size(0, len(data)))
     assert len(batches) >= 8
@@ -236,7 +236,7 @@ def test_device_scanner_flags_match_reference(planted):
         filled = np.zeros(buf + 4096, dtype=np.uint8)
         copy_segments(filled, b.segments, lambda _i: data, 512)
         want = ref.resolve(ref.submit(filled))
-        got = port.resolve(port.submit(filled))
+        got = port.scan(filled)
         assert got.dtype == want.dtype and (got == want).all()
         flagged += int(got.sum())
     assert flagged > 0
@@ -333,7 +333,7 @@ def test_stats_with_n_prints_rate(corpus, monkeypatch):
     want = sum(size for _path, size in eng._walk_iter(str(corpus)) if size >= 6)
     eng = Engine([b"needle"], EngineConfig(device="cpu,cpu"))
     assert run_parallel(eng, str(corpus), lambda b: None, 2) == want > 0
-    assert eng.cfg.n_shards == 2 and eng._scanner.n_shards == 2
+    assert eng.cfg.n_shards == 2 and len(eng._scanner.lanes) == 2
     # a scanner cached for another shard count is dropped, not reused
     old = eng._scanner
     assert run_parallel(eng, str(corpus), lambda b: None, 1) == want

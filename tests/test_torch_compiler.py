@@ -198,7 +198,7 @@ for p in (pats, [rb".{0,2}[0-9]{11}"]):
     eng.scan_data("f", b"abc longliteral03 needle 123ab x91827364550x\n" * 500, out.append)
     assert out, p
 import grab_tpu_torch.ops.bloom, grab_tpu_torch.parallel.scan_step
-import grab_tpu_torch.parallel.sharded, grab_tpu_torch.server
+import grab_tpu_torch.parallel.runner, grab_tpu_torch.server
 import numpy as np, torch
 sc = grab_tpu_torch.ops.bloom.BloomWordScanner([b"needleXY", b"longliteral03"])
 words = np.zeros((40, 128), "<i4")
@@ -207,7 +207,8 @@ total, packed = sc.packed(torch.from_numpy(words))
 assert int(total) == 1 and sc.flags_np(packed.numpy(), 32)[1] == 1
 out = []
 eng = Engine(b"needle", EngineConfig(device="cpu,cpu", n_shards=2, scan_buf_size=64 << 10))
-assert type(eng._get_scanner()).__name__ == "ShardedScanner"
+sc = eng._get_scanner()
+assert type(sc).__name__ == "DeviceScanner" and len(sc.lanes) == 2
 eng.scan_data("f", b"abc needle xyz\n" * 20000, out.append)
 assert b"".join(out).count(b"needle") >= 20000, len(out)
 cache = grab_tpu_torch.server._EngineCache()

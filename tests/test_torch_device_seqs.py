@@ -153,10 +153,10 @@ def test_log_text_blocks_flagged(batch, monkeypatch):
     n = 4 << 20
     buf = np.zeros(n + 32 * 512, np.uint8)
     buf[:n] = _log_text(n)
-    flagged = DeviceScanner(batch, buf_size=n, device="cpu").scan(buf)
+    flagged = DeviceScanner(batch, buf_size=n, devices=["cpu"]).scan(buf)
     assert flagged.size == n // 512 and (flagged > 0).sum() < 0.01 * flagged.size
     monkeypatch.setattr(scan_pipeline, "device_class_seqs", lambda cp: cp.class_seqs)
-    parent = DeviceScanner(batch, buf_size=n, device="cpu").scan(buf)
+    parent = DeviceScanner(batch, buf_size=n, devices=["cpu"]).scan(buf)
     assert (parent > 0).sum() > 0.9 * parent.size
 
 

@@ -106,7 +106,7 @@ def test_dfa_flags_match_reference(pattern, buf_size, stream_seg):
     r = RefScanner(ref_compile([pattern]), buf_size=buf_size, stream_seg=stream_seg,
                    pallas_interpret=True)
     p = DeviceScanner(compile_multi([pattern]), buf_size=buf_size, stream_seg=stream_seg,
-                      device="cpu")
+                      devices=["cpu"])
     assert r.mode == p.mode == "dfa"
     member = p.members[0]
     assert type(member).__name__ == "DfaWalkMember"

@@ -10,11 +10,19 @@ Python fallback) to a plain model of one segment's extent."""
 import numpy as np
 import pytest
 
+from grab_tpu_torch import scan_pipeline
 from grab_tpu_torch.engine import Engine, EngineConfig
 from grab_tpu_torch.ingest import native
 from tests._fill_cases import BUF, NEEDLES, PATTERNS, Tap, scan_tree, stats_field, text
 from tests._torch_threads import _one_thread  # noqa: F401 (autouse: one intra-op thread)
 
+
+@pytest.fixture(autouse=True)
+def _own_lanes(monkeypatch):
+    """Each test starts on lanes of its own, as a new process does: the
+    process's lanes outlive a scan, and what earlier tests left in their
+    slots must not decide which of this test's claims find stale bytes."""
+    monkeypatch.setattr(scan_pipeline, "_LANES", {})
 
 
 @pytest.mark.parametrize("shards", [1, 2], ids=["one device", "-n 2"])
@@ -43,6 +51,35 @@ def test_reused_slot_fill_matches_fresh_buffers(tmp_path, monkeypatch, case, pat
     batches = stats_field(line, "batches")
     assert batches >= 3 and len(tap.bufs) == shards
     assert stats_field(line, "inplace") == (batches if pattern == "linear" else 0)
+
+
+# each turn's last batch is shorter than the last turn's (smaller files after the big one)
+TURNS = [("linear", "removed"), ("stride-only", "padding"), ("linear", "stale_tail")]
+
+
+@pytest.mark.parametrize("shards", [1, 2], ids=["one device", "-n 2"])
+def test_plans_in_turn_on_one_lane_match_fresh_buffers(tmp_path, monkeypatch, shards):
+    """Plans of different kinds fill the same lanes' slots in turn: a
+    literal plan, then a stride-only plan, then a literal plan whose
+    last batch is shorter. Each finds bytes that the one before left in
+    its slots; every buffer submitted, its flags, the stdout and
+    cand_blocks equal a scan whose every batch is filled into a buffer
+    zeroed for it alone."""
+    lanes = None
+    for turn, (pattern, case) in enumerate(TURNS):
+        root = tmp_path / str(turn)
+        out, line, tap = scan_tree(root, case, pattern, shards, False, monkeypatch)
+        want_out, want_line, want = scan_tree(root, case, pattern, shards, True, monkeypatch)
+        assert out == want_out and out.count(b"\n") > 100
+        for got, exp in ((tap.bufs, want.bufs), (tap.flags, want.flags)):
+            assert [len(l) for l in got] == [len(l) for l in exp]
+            for got_lane, exp_lane in zip(got, exp):
+                for g, w in zip(got_lane, exp_lane):
+                    assert np.array_equal(g, w)
+        assert stats_field(line, "cand_blocks") == stats_field(want_line, "cand_blocks")
+        assert tap.stale_claims >= 1 and len(tap.lanes) == shards
+        assert lanes is None or all(a is b for a, b in zip(tap.lanes, lanes))
+        lanes = tap.lanes
 
 
 @pytest.mark.parametrize("kind", ["stale_tail", "padding"])

@@ -256,7 +256,7 @@ def test_literal_plans_match_reference(monkeypatch, plan, env):
     pats = PLANS[plan]
     buf_size = 1 << 20
     r = RefScanner(ref_compile(pats), buf_size=buf_size, pallas_interpret=True)
-    p = DeviceScanner(compile_multi(pats), buf_size=buf_size, device="cpu")
+    p = DeviceScanner(compile_multi(pats), buf_size=buf_size, devices=["cpu"])
     assert r.mode == p.mode == "literal"
     assert [type(m).__name__ for m in p.members] == [type(m).__name__ for m in r._cw_list]
     assert p._shorts_absorbed == getattr(r, "_shorts_absorbed", False)
@@ -289,7 +289,7 @@ def test_expected_member_types(monkeypatch):
             monkeypatch.delenv(var, raising=False)
         for var, val in env.items():
             monkeypatch.setenv(var, val)
-        sc = DeviceScanner(compile_multi(PLANS[plan]), buf_size=1 << 20, device="cpu")
+        sc = DeviceScanner(compile_multi(PLANS[plan]), buf_size=1 << 20, devices=["cpu"])
         return [type(m).__name__ for m in sc.members], sc._shorts_absorbed
 
     assert members("stride member") == (["FusedEnsembleScanner", "_StrideSeqMember"], False)

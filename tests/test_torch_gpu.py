@@ -99,24 +99,26 @@ def test_device_scanner_pipelined_flags_match_cpu(cuda):
     resolve reads its own batch's count (pinned copy + event) and the
     flags equal the CPU scanner's on the same buffers."""
     from grab_tpu_torch.regex.compiler import compile_multi
-    from grab_tpu_torch.scan_pipeline import DeviceScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, release_lanes, take_lanes
 
     buf = N
     cp = compile_multi([b"l[imn]nus"])
-    dev = DeviceScanner(cp, buf_size=buf, device="cuda")
-    cpu = DeviceScanner(cp, buf_size=buf, device="cpu")
+    dev = DeviceScanner(cp, buf_size=buf, devices=["cuda"])
+    cpu = DeviceScanner(cp, buf_size=buf, devices=["cpu"])
     lits = [b"linus", b"lmnus", b"lnnus"]
     bufs = [_words(kind, lits, s).view(np.uint8).reshape(-1)
             for s, kind in enumerate(["text", "zeros", "binary", "text"])]
     bufs[1][:] = 0  # a clean batch: resolved from the count alone
-    pending = [dev.submit(bufs[0])]
+    lanes = take_lanes(dev.lanes)
+    pending = dev.submit(lanes, bufs[:1])
     got = []
     for b in bufs[1:]:
-        pending.append(dev.submit(b))
+        pending += dev.submit(lanes, [b])
         got.append(dev.resolve(pending.pop(0)))
     got.append(dev.resolve(pending.pop(0)))
+    release_lanes(lanes)
     for g, b in zip(got, bufs):
-        want = cpu.resolve(cpu.submit(b))
+        want = cpu.scan(b)
         assert g.dtype == want.dtype and (g == want).all()
     assert not got[1].any() and got[0].any() and got[3].any()
 
@@ -422,12 +424,12 @@ def test_device_scanner_new_routes_match_cpu(cuda, pattern):
     """class_seq (stride member, word kernel) and gdfa (windows,
     threading), two batches in flight: flags equal the CPU scanner's."""
     from grab_tpu_torch.regex.compiler import compile_multi
-    from grab_tpu_torch.scan_pipeline import DeviceScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, release_lanes, take_lanes
 
     buf_size = 2 << 20
     cp = compile_multi([pattern])
-    dev = DeviceScanner(cp, buf_size=buf_size, device="cuda")
-    cpu = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    dev = DeviceScanner(cp, buf_size=buf_size, devices=["cuda"])
+    cpu = DeviceScanner(cp, buf_size=buf_size, devices=["cpu"])
     assert dev.mode == cpu.mode and type(dev.members[0]) is type(cpu.members[0])
     rng = np.random.default_rng(9)
     bufs = []
@@ -439,14 +441,16 @@ def test_device_scanner_new_routes_match_cpu(cuda, pattern):
                 b[pos + 13 * k : pos + 13 * k + len(s)] = np.frombuffer(s, np.uint8)
         bufs.append(b)
     bufs[1][:] = 0
-    pending = [dev.submit(bufs[0])]
+    lanes = take_lanes(dev.lanes)
+    pending = dev.submit(lanes, bufs[:1])
     got = []
     for b in bufs[1:]:
-        pending.append(dev.submit(b))
+        pending += dev.submit(lanes, [b])
         got.append(dev.resolve(pending.pop(0)))
     got.append(dev.resolve(pending.pop(0)))
+    release_lanes(lanes)
     for g, b in zip(got, bufs):
-        want = cpu.resolve(cpu.submit(b))
+        want = cpu.scan(b)
         assert g.dtype == want.dtype and (g == want).all()
     assert got[0].any() and not got[1].any()
 
@@ -743,7 +747,7 @@ def test_fused_kernel_batch4_matches_plain(cuda):
     pats += [rb"foo[a-z]{2,6}bar", rb"[0-9]{3}-[0-9]{4}", rb"qu+x", rb"colou?r",
              rb"abc(def|ghi)jkl", rb"w[xyz]{3}w", rb"nee+dle", rb"[A-Z]{5}99",
              rb"zz(?:a|b|c)zz", rb"end\.x"]
-    sc = DeviceScanner(compile_multi(pats), buf_size=1 << 20, device="cpu").members[0]
+    sc = DeviceScanner(compile_multi(pats), buf_size=1 << 20, devices=["cpu"]).members[0]
     assert type(sc) is fu.FusedEnsembleScanner and len(sc.seqs) == 3
     plants = [b"555-1234", b"QWERT99", b"quuux"] + pats[:5]
     for i, kind in enumerate(("text", "binary", "zeros")):
@@ -774,7 +778,7 @@ def test_device_scanner_ensembles_match_cpu(cuda, monkeypatch, plan, no_fused):
     """Multi-member scanners (two uploads beside a stride member), alpha
     and the walk, two batches in flight: flags equal the CPU scanner's."""
     from grab_tpu_torch.regex.compiler import compile_multi
-    from grab_tpu_torch.scan_pipeline import DeviceScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, release_lanes, take_lanes
 
     monkeypatch.delenv("GRAB_TPU_SEQDFA", raising=False)
     if no_fused:
@@ -783,8 +787,8 @@ def test_device_scanner_ensembles_match_cpu(cuda, monkeypatch, plan, no_fused):
         monkeypatch.delenv("GRAB_TPU_NO_FUSED", raising=False)
     buf_size = (64 << 10) if plan == "last-resort walk" else (1 << 20)
     cp = compile_multi(ENSEMBLE_PLANS[plan])
-    dev = DeviceScanner(cp, buf_size=buf_size, device="cuda")
-    cpu = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    dev = DeviceScanner(cp, buf_size=buf_size, devices=["cuda"])
+    cpu = DeviceScanner(cp, buf_size=buf_size, devices=["cpu"])
     assert dev.mode == cpu.mode
     assert [type(m) for m in dev.members] == [type(m) for m in cpu.members]
     rng = np.random.default_rng(11)
@@ -799,14 +803,16 @@ def test_device_scanner_ensembles_match_cpu(cuda, monkeypatch, plan, no_fused):
                 b[at : at + len(s)] = np.frombuffer(s, np.uint8)
         bufs.append(b)
     bufs[1][:] = ord("-")
-    pending = [dev.submit(bufs[0])]
+    lanes = take_lanes(dev.lanes)
+    pending = dev.submit(lanes, bufs[:1])
     got = []
     for b in bufs[1:]:
-        pending.append(dev.submit(b))
+        pending += dev.submit(lanes, [b])
         got.append(dev.resolve(pending.pop(0)))
     got.append(dev.resolve(pending.pop(0)))
+    release_lanes(lanes)
     for g, b in zip(got, bufs):
-        want = cpu.resolve(cpu.submit(b))
+        want = cpu.scan(b)
         assert g.dtype == want.dtype and (g == want).all()
     assert got[0].any() and not got[1].any()
 
@@ -905,19 +911,21 @@ def test_sharded_scanner_matches_cpu(cuda, monkeypatch, plan):
     is only one), two groups in flight as CorpusPipeline keeps them, a
     short last group and a clean one: flags equal the CPU scanner's in
     submit order, and a clean group pulls no payload."""
-    from grab_tpu_torch.parallel.sharded import ShardedScanner
+    from grab_tpu_torch.parallel.scan_step import shard_devices
     from grab_tpu_torch.regex.compiler import compile_multi
-    from grab_tpu_torch.scan_pipeline import DeviceScanner
+    from grab_tpu_torch.scan_pipeline import DeviceScanner, release_lanes, take_lanes
 
     for var in ("GRAB_TPU_NO_FUSED", "GRAB_TPU_SEQDFA"):
         monkeypatch.delenv(var, raising=False)
     devices, n = _group_devices()
     buf_size = 1 << 20
     cp = compile_multi(GROUP_PLANS[plan])
-    sh = ShardedScanner(cp, n, buf_size=buf_size, devices=devices)
-    cpu = DeviceScanner(cp, buf_size=buf_size, device="cpu")
-    assert sh.group_size == n and sh.mode == cpu.mode
-    assert len({id(s) for s in sh._streams}) == n
+    sh = DeviceScanner(cp, buf_size=buf_size, devices=shard_devices(n, devices))
+    cpu = DeviceScanner(cp, buf_size=buf_size, devices=["cpu"])
+    assert len(sh.lanes) == n and sh.mode == cpu.mode
+    lanes = take_lanes(sh.lanes)
+    # lane 0 on the caller's stream, every other lane on a stream of its own
+    assert lanes[0].stream is None and len({id(l.stream) for l in lanes[1:]}) == n - 1
     rng = np.random.default_rng(13)
     bufs = []
     for i in range(2 * n + 1):
@@ -932,18 +940,19 @@ def test_sharded_scanner_matches_cpu(cuda, monkeypatch, plan):
     for b in bufs[n : 2 * n]:
         b[:buf_size] = ord("-")  # the second group is clean
     groups = [bufs[:n], bufs[n : 2 * n], bufs[2 * n :]]
-    pending = [sh.submit_group(groups[0])]
+    pending = [sh.submit(lanes, groups[0])]
     got, pulls = [], []
     for g in groups[1:]:
-        pending.append(sh.submit_group(g))
-        got += sh.resolve_group(pending.pop(0))
+        pending.append(sh.submit(lanes, g))
+        got += [sh.resolve(h) for h in pending.pop(0)]
         pulls.append(sh.payload_pulls)
-    got += sh.resolve_group(pending.pop(0))
+    got += [sh.resolve(h) for h in pending.pop(0)]
     pulls.append(sh.payload_pulls)
+    release_lanes(lanes)
     assert pulls == [n, n, n + 1]  # the clean group pulled nothing
     assert len(got) == len(bufs)
     for i, (g, b) in enumerate(zip(got, bufs)):
-        want = cpu.resolve(cpu.submit(b))
+        want = cpu.scan(b)
         assert g.dtype == want.dtype and (g == want).all(), i
         assert bool(g.any()) == (not n <= i < 2 * n)
 
@@ -1013,6 +1022,43 @@ def test_server_warm_start_and_round_trip(cuda, tmp_path):
     finally:
         srv.terminate()
         srv.wait(timeout=30)
+
+
+@pytest.mark.gpu
+def test_cached_plans_keep_card_memory_flat(cuda, tmp_path, monkeypatch):
+    """20 requests with distinct literals through the server's cache:
+    each builds and keeps a plan of its own, and all of them fill and
+    upload through the card's one lane, so after the first request
+    neither the pinned slots nor the card's allocated memory grow (but
+    for each plan's own tables: kilobytes)."""
+    import io
+
+    from grab_tpu_torch import scan_pipeline
+    from grab_tpu_torch.server import _EngineCache, _run_with_cache
+
+    monkeypatch.setattr(scan_pipeline, "_LANES", {})
+    monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", "cuda:0")
+    rng = np.random.default_rng(20)
+    data = rng.integers(97, 123, size=(40 << 20) + 999, dtype=np.uint8)  # two 32 MiB batches
+    data[::97] = 10
+    (tmp_path / "a.log").write_bytes(data.tobytes())
+    cache = _EngineCache()
+
+    def pinned_slots():
+        return sum(len(slot) for pool in scan_pipeline._LANES.values() for lane in pool
+                   for slot in lane._pinned)
+
+    seen = []
+    for i in range(20):
+        out, err = io.BytesIO(), io.StringIO()
+        argv = ["-r", "-S", "zq%02dxkv" % i, str(tmp_path)]
+        assert _run_with_cache(argv, cache, out, err, i + 1) == 0, err.getvalue()
+        assert out.getvalue() == b""
+        torch.cuda.synchronize()
+        seen.append((pinned_slots(), torch.cuda.memory_allocated()))
+    assert (cache.hits, cache.misses) == (0, 20) and len(cache._scanners) == 20
+    assert seen[0][0] == 2 and all(n == seen[0][0] for n, _ in seen), seen
+    assert max(m for _, m in seen) - seen[0][1] < (1 << 20), seen
 
 
 # -- the last-resort DFA walk (csrc/dfa_walk.cu) --------------------------------
@@ -1203,6 +1249,11 @@ def test_pinned_slot_fill_matches_cpu(cuda, tmp_path, monkeypatch, case, pattern
     # package-less folder: a site-wide ``tests`` package may shadow ours
     from _fill_cases import scan_tree, stats_field
 
+    from grab_tpu_torch import scan_pipeline
+
+    # lanes of the test's own, as a new process has: what earlier tests
+    # left in the process's slots must not decide which claims are stale
+    monkeypatch.setattr(scan_pipeline, "_LANES", {})
     out, line, tap = scan_tree(tmp_path / "card", case, pattern, shards, False, monkeypatch,
                            device="cuda:0")
     want_out, want_line, want = scan_tree(tmp_path / "cpu", case, pattern, shards, False,

@@ -21,7 +21,6 @@ from grab_tpu import cli as ref_cli
 from grab_tpu_torch import cli as port_cli
 from grab_tpu_torch import server as server_mod
 from grab_tpu_torch.engine import EngineConfig
-from grab_tpu_torch.parallel.sharded import ShardedScanner
 from grab_tpu_torch.scan_pipeline import DeviceScanner
 
 CPU4 = "cpu,cpu,cpu,cpu"
@@ -188,9 +187,9 @@ def test_cache_keys_scanners():
     assert a is not b and a._scanner is b._scanner and isinstance(a._scanner, DeviceScanner)
     assert a.compiled is not b.compiled  # the patterns are compiled per request
     n2, n2b, n4 = eng(n_shards=2), eng(n_shards=2), eng(n_shards=4)
-    assert isinstance(n2._scanner, ShardedScanner) and n2._scanner.group_size == 2
+    assert isinstance(n2._scanner, DeviceScanner) and len(n2._scanner.lanes) == 2
     assert n2._scanner is n2b._scanner and n2._scanner is not a._scanner
-    assert n4._scanner.group_size == 4 and n4._scanner is not n2._scanner
+    assert len(n4._scanner.lanes) == 4 and n4._scanner is not n2._scanner
     assert eng(n_shards=999)._scanner is n4._scanner  # capped: the same effective shards
     assert eng(device="cpu")._scanner is not a._scanner
     assert eng(device="cpu", n_shards=4)._scanner is eng(device="cpu")._scanner
@@ -205,6 +204,51 @@ def test_cache_keys_scanners():
     out = []
     b.scan_data("f", b"xx needleXY yy\n" * 50, out.append)
     assert b"".join(out).count(b"needleXY") >= 1
+
+
+def test_cached_plans_share_the_device_lane(monkeypatch):
+    """Two plans cached on one device fill the same slot buffers: the
+    lane's, not the plan's. A stream started while another is
+    unfinished gets a lane of its own, and the first lane serves again
+    once that stream has ended."""
+    from grab_tpu_torch import scan_pipeline
+    from grab_tpu_torch.scan_pipeline import CorpusPipeline
+
+    monkeypatch.setattr(scan_pipeline, "_LANES", {})
+    claimed = []
+    claim = DeviceScanner.claim
+
+    def tap(sc, lane):
+        slot = claim(sc, lane)
+        claimed.append((sc, lane, slot.buf.ctypes.data))
+        return slot
+
+    monkeypatch.setattr(DeviceScanner, "claim", tap)
+    cache = server_mod._EngineCache()
+    cfg = dict(device="cpu", scan_buf_size=64 << 10)
+    a = cache.engine_for([b"needleXY"], EngineConfig(**cfg))
+    b = cache.engine_for([rb"[A-Z]{6}[0-9]{6}"], EngineConfig(**cfg))
+    assert a._scanner is not b._scanner and (a._scanner.mode, b._scanner.mode) == (
+        "literal", "class_seq")
+    files = [(f"f{i}", b"xx needleXY QWERTY123456 yy\n" * 8000) for i in range(2)]
+    for eng in (a, b):
+        out = []
+        eng.scan_corpus(iter(files), out.append)
+        assert b"".join(out).count(b"\n") == 16000
+    bufs = {sc: {p for s, _l, p in claimed if s is sc} for sc in (a._scanner, b._scanner)}
+    assert len(bufs[a._scanner]) == 2 and bufs[a._scanner] == bufs[b._scanner]
+    first = claimed[0][1]
+    assert all(lane is first for _s, lane, _p in claimed)
+
+    claimed.clear()
+    held = CorpusPipeline(a._scanner).run(iter(files))
+    next(held)  # the first file is out, the second not yet: the stream holds its lane
+    assert claimed[-1][1] is first
+    list(CorpusPipeline(b._scanner).run(iter(files)))
+    assert claimed[-1][1] is not first and claimed[-1][2] not in bufs[a._scanner]
+    list(held)  # the stream ends and hands its lane back
+    list(CorpusPipeline(b._scanner).run(iter(files)))
+    assert claimed[-1][1] is first
 
 
 def test_warm_is_a_no_op_without_cuda_devices(monkeypatch):

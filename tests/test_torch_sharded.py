@@ -1,4 +1,4 @@
-"""-n N in the port: the ShardedScanner inside the Engine, on the CPU.
+"""-n N in the port: a DeviceScanner of N lanes inside the Engine, on the CPU.
 
 Mirrors tests/test_sharded_engine.py and tests/test_sharded_word_scan.py.
 The device list ``cpu,cpu,cpu,cpu,cpu,cpu,cpu,cpu`` is to the port what
@@ -22,7 +22,7 @@ from grab_tpu_torch import cli as port_cli
 from grab_tpu_torch import engine as port_engine
 from grab_tpu_torch.format.emitter import OutputConfig
 from grab_tpu_torch.parallel.scan_step import make_sharded_word_scan, shard_devices
-from grab_tpu_torch.parallel.sharded import ShardedScanner
+from grab_tpu_torch.scan_pipeline import DeviceScanner, release_lanes, take_lanes
 
 CPU8 = ",".join(["cpu"] * 8)
 BUF = 64 << 10  # small fixed buffer → many batches per corpus
@@ -77,7 +77,7 @@ def test_sharded_output_identical(pattern, mode):
     assert out1, "corpus must produce matches for the test to mean anything"
     assert out8 == out1 and out8 == ref8
     sc = eng8._scanner
-    assert isinstance(sc, ShardedScanner) and sc.group_size == 8 and len(sc.lanes) == 8
+    assert isinstance(sc, DeviceScanner) and len(sc.lanes) == 8
     assert eng8.stats.device_batches >= 8
     # 13 batches: one full group and a short one of 5 lanes
     assert eng8.stats.device_batches % 8 != 0
@@ -132,7 +132,7 @@ def test_sharded_modes_identical(case):
     assert out1.count(b"\n") >= 10
     assert out8 == out1 and out8 == ref8
     sc = eng8._scanner
-    assert isinstance(sc, ShardedScanner) and sc.mode == eng1._scanner.mode == ref_eng._scanner.mode
+    assert len(sc.lanes) == 8 and sc.mode == eng1._scanner.mode == ref_eng._scanner.mode
     assert [type(m).__name__ for m in sc.members] == [
         type(m).__name__ for m in eng1._scanner.members]
     if case == "batch-stride":
@@ -158,22 +158,27 @@ def test_group_pulls_only_hit_lanes():
     uses the first lanes."""
     from grab_tpu_torch.regex.compiler import compile_multi
 
-    sc = ShardedScanner(compile_multi([b"needleXY"]), 4, buf_size=BUF, devices=CPU8)
-    assert sc.n_shards == sc.group_size == 4 and [l.device.type for l in sc.lanes] == ["cpu"] * 4
+    sc = DeviceScanner(compile_multi([b"needleXY"]), buf_size=BUF,
+                       devices=shard_devices(4, CPU8))
+    assert [d.type for d in sc.lanes] == ["cpu"] * 4
     bufs = [np.full(BUF + 4096, ord("."), dtype=np.uint8) for _ in range(3)]
     for b in bufs:
         b[BUF:] = 0
     bufs[1][5000:5008] = np.frombuffer(b"needleXY", np.uint8)
-    flags = sc.resolve_group(sc.submit_group(bufs))
+    lanes = take_lanes(sc.lanes)
+    handles = sc.submit(lanes, bufs)
+    assert [h[0] for h in handles] == lanes[:3]  # the first lanes, in order
+    flags = [sc.resolve(h) for h in handles]
     assert len(flags) == 3 and not flags[0].any() and not flags[2].any()
     assert flags[1][5000 // 512] == 1
-    assert [l.payload_pulls for l in sc.lanes] == [0, 1, 0, 0]
-    single = sc.lanes[0].scan(bufs[1])
+    assert sc.payload_pulls == 1  # lane 1's alone
+    with pytest.raises(ValueError):
+        sc.submit(lanes, [])
+    with pytest.raises(ValueError):
+        sc.submit(lanes, bufs + bufs)
+    release_lanes(lanes)
+    single = sc.scan(bufs[1])
     assert np.array_equal(flags[1], single)
-    with pytest.raises(ValueError):
-        sc.submit_group([])
-    with pytest.raises(ValueError):
-        sc.submit_group(bufs + bufs)
 
 
 def _run(cli, argv):
@@ -221,8 +226,7 @@ def test_n_shards_caps_at_device_count(device, want):
     eng = port_engine.Engine([b"needleXY"], cfg)
     assert eng._effective_shards() == want == port_engine.effective_shards(cfg)
     if device != "none":
-        sharded = isinstance(eng._scanner, ShardedScanner)
-        assert sharded == (want > 1) and eng._scanner.group_size == want
+        assert isinstance(eng._scanner, DeviceScanner) and len(eng._scanner.lanes) == want
     cfg.n_shards = 2
     assert port_engine.effective_shards(cfg) == min(2, want)
 

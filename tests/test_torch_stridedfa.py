@@ -497,7 +497,7 @@ def test_device_scanner_routes_like_reference(pattern, mode, member):
     from grab_tpu_torch.scan_pipeline import DeviceScanner
 
     r = RefScanner(ref_compile([pattern]), buf_size=2 << 20, pallas_interpret=True)
-    p = DeviceScanner(compile_multi([pattern]), buf_size=2 << 20, device="cpu")
+    p = DeviceScanner(compile_multi([pattern]), buf_size=2 << 20, devices=["cpu"])
     assert r.mode == p.mode == mode
     got = type(p.members[0]).__name__
     want = type(r._gdfa).__name__ if r.mode == "gdfa" else type(r._cw_list[0]).__name__
@@ -520,9 +520,9 @@ def test_device_scanner_gdfa_flags_match_reference():
     for pos, span in ((5000, 8), (131030, 300), (524288 - 10, 5000), (900001, 4)):
         buf[pos : pos + span] = np.frombuffer((b"a1B2" * (span // 4 + 1))[:span], np.uint8)
     r = RefScanner(ref_compile([pat]), buf_size=2 << 20, pallas_interpret=True)
-    p = DeviceScanner(compile_multi([pat]), buf_size=2 << 20, device="cpu")
+    p = DeviceScanner(compile_multi([pat]), buf_size=2 << 20, devices=["cpu"])
     want = r.resolve(r.submit(buf))
-    got = p.resolve(p.submit(buf))
+    got = p.scan(buf)
     assert got.dtype == want.dtype and np.array_equal(got, want) and got.sum() > 0
 
 
@@ -544,7 +544,7 @@ def test_plan_refusal_names_item(pattern, buf_size, item):
 
     cp = compile_multi([pattern])
     assert plan_refusal(cp) is None
-    p = DeviceScanner(cp, buf_size=buf_size, device="cpu")
+    p = DeviceScanner(cp, buf_size=buf_size, devices=["cpu"])
     r = RefScanner(ref_compile([pattern]), buf_size=buf_size, pallas_interpret=True)
     assert p.mode == r.mode == {"ROADMAP A6": "dfa", "ROADMAP A7": "alpha"}[item]
     want = {"dfa": "DfaWalkMember", "alpha": "AlphaRunScanner"}[p.mode]
@@ -554,7 +554,7 @@ def test_plan_refusal_names_item(pattern, buf_size, item):
     no_form = compile_multi([rb"(.)\1"])  # a backreference and no class run
     assert plan_refusal(no_form) is not None
     with pytest.raises(ValueError, match="no device-scannable form"):
-        DeviceScanner(no_form, buf_size=buf_size, device="cpu")
+        DeviceScanner(no_form, buf_size=buf_size, devices=["cpu"])
 
 
 # -- the device-side relayout and the linear-words entries ---------------------

@@ -3,7 +3,7 @@ reference's tier-coverage battery (``tools/tier_coverage.py``, loaded from
 its file, unchanged).
 
 For each of the battery's patterns at the reference's 32 MiB buffer, the
-port's ``DeviceScanner(device="cpu")`` must land on the tier the
+port's ``DeviceScanner(devices=["cpu"])`` must land on the tier the
 reference's ``classify`` reports (the same (mode, detail) strings, built
 from the port's scanner), with the same member types and, for every
 strided-DFA member, the same plan (mode, k, states, window mode) as the
@@ -39,7 +39,7 @@ def port_classify(pat: bytes):
     → ((mode, detail), scanner or None)."""
     cp = compile_multi([pat])
     try:
-        sc = DeviceScanner(cp, buf_size=BUF, device="cpu")
+        sc = DeviceScanner(cp, buf_size=BUF, devices=["cpu"])
     except ValueError:
         return ("host-only", "no device-scannable form"), None
     mode, d = sc.mode, ""
