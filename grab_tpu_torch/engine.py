@@ -468,6 +468,9 @@ class ScanStats:
     # hit | miss: the scan server's cache held the scanner, or built it
     # (set by server._EngineCache); none: not served through that cache
     scanner: str = "none"
+    # hit | miss: the server's compile cache held the compiled unit, or
+    # compiled it (server._EngineCache); none: not served through it
+    compiled: str = "none"
     cache: Optional[Tuple[int, int]] = None  # the server cache's running (hits, misses)
     kernel_loads0: Tuple[float, int, int] = (0.0, 0, 0)  # _build.kernel_loads at the start
 
@@ -514,7 +517,7 @@ class ScanStats:
             f" | req={self.request} compile={t('compile', 0.0):.4f}s "
             f"scanner={self.scanner}:{t('scanner', 0.0):.4f}s "
             + "".join(f"{k}={t(k, 0.0):.4f}s " for k in PIPELINE_SPANS)
-            + f"seqgate={self.seqgate[0]}/{self.seqgate[1]} "
+            + f"compiled={self.compiled} seqgate={self.seqgate[0]}/{self.seqgate[1]} "
             + f"pulls={self.pulls} inplace={self.inplace} replay_bytes={self.replay_bytes} "
             + f"kernel_load={load_s:.4f}s/{built}/{loaded}"
             + ("" if self.cache is None else f" cache={self.cache[0]}/{self.cache[1]}")
@@ -554,11 +557,139 @@ def effective_shards(cfg: EngineConfig) -> int:
     return max(1, min(cfg.n_shards, len(resolve_devices(cfg.device))))
 
 
+@dataclass
+class CompiledUnit:
+    """What an Engine compiles from its patterns before any scan: the
+    scan unit (``compile_multi``), the exact matcher the replay runs, the
+    matcher's class-sequence gates, and whether no pattern can match
+    \\n. ``compile_unit`` builds it; the scan server keeps it across
+    requests (server._EngineCache). Nothing of it is written during a
+    search except the gates' ``cleared`` / ``passed`` counts, which an
+    Engine reads as a difference from its start."""
+
+    compiled: CompiledPattern
+    exact: object
+    gates: List[_ClassGatedMatcher]
+    line_narrow: bool
+
+
+def compile_key(patterns: List[bytes], cfg: EngineConfig) -> tuple:
+    """Everything ``compile_unit`` reads: the patterns, the mode
+    (literal parsing, pcre2's matchers), the PCRE1 capture quirk, and
+    the active ctype tables by content (a class, \\w or (?i) compiles
+    from them; the derived ``_``-keys are filled lazily from the same
+    locale). Buffer size, devices and shards are not read."""
+    from grab_tpu_torch.regex import ctype
+
+    tables = ctype.active()
+    return (
+        tuple(patterns),
+        cfg.mode,
+        cfg.pcre1_quirks,
+        None if tables is None else tuple(sorted(
+            (k, v) for k, v in tables.items() if not k.startswith("_")
+        )),
+    )
+
+
+def compile_unit(patterns, cfg: EngineConfig) -> CompiledUnit:
+    cp = compile_multi(patterns, literal_mode=(cfg.mode == "literal"))
+    exact = _make_exact_matcher(cp, cfg)
+    return CompiledUnit(
+        compiled=cp,
+        exact=exact,
+        gates=[
+            m
+            for m in getattr(exact, "matchers", [exact])
+            if isinstance(m, _ClassGatedMatcher)
+        ],
+        line_narrow=not any(A.may_match_newline(t) for t in cp.asts),
+    )
+
+
+def _make_exact_matcher(cp: CompiledPattern, cfg: EngineConfig):
+    # exact-literal fast path: patterns denoting exactly one string
+    # verify via bytes.find (C memmem) — identical results in every
+    # mode; the empty pattern and the capture quirk are excluded
+    lits = [A.exact_literal(t) for t in cp.asts]
+    if all(l for l in lits) and not cp.has_captures:
+        if len(lits) == 1:
+            return _LiteralMatcher(lits[0])
+        return _MultiMatcher([_LiteralMatcher(l) for l in lits], cp.asts)
+    if cfg.mode == "pcre2":
+        from grab_tpu_torch.regex import pcre2
+
+        if pcre2.available():
+            matchers = []
+            for p, t in zip(cp.patterns, cp.asts):
+                m = pcre2.PCRE2Pattern(p)
+                if not A.may_match_newline(t) and not A.has_anchors(t):
+                    m = _WindowBoundedMatcher(m)
+                # factor gate (bytes.find prefilter) applies to any
+                # exact engine; seeded start-ranges need start_hi
+                # support, which the pcre2 API lacks — gate only
+                matchers.append(_factor_gate(m, t, seeded=False))
+            if cp.n_patterns == 1:
+                return matchers[0]
+            return _MultiMatcher(matchers, cp.asts)
+        # fall through to our engine (semantics match on the subset)
+    quirk = cfg.mode == "pcre1" and cfg.pcre1_quirks
+    # PCRE1 3-slot-ovector quirk applies per pattern: a capturing
+    # pattern yields no matches, but the rest of a -H batch still
+    # scans (each pattern is its own pcre in the reference)
+    matchers = [
+        _NeverMatch()
+        if quirk and A.has_captures(t)
+        else _factor_gate(m, t)
+        for m, t in zip(cp.matchers, cp.asts)
+    ]
+    if all(isinstance(m, _NeverMatch) for m in matchers):
+        return _NeverMatch()
+    if cp.n_patterns == 1:
+        return matchers[0]
+    return _MultiMatcher(matchers, cp.asts)
+
+
+def _factor_gate(matcher, tree, seeded: bool = True):
+    # mandatory_literals returns an ALTERNATIVE set (any match
+    # contains >= 1 member): the gate fires on the earliest
+    # occurrence of ANY member (round 2 only gated singleton sets —
+    # `l[imn]nus` got no gate and fell to the ~2 MB/s raw VM walk)
+    facs = A.mandatory_literals(tree)
+    if not facs or len(facs) > 8 or any(len(f) < 2 for f in facs):
+        # no literal gate: gate on the match's first classes instead
+        seqs = A.device_class_sequences(tree)
+        if seqs and _ClassGatedMatcher.selective(seqs):
+            return _ClassGatedMatcher(matcher, seqs)
+        return matcher
+    mx = A.max_len(tree)
+    if seeded and mx is not None and mx - min(len(f) for f in facs) <= 64:
+        return _FactorSeededMatcher(matcher, facs, mx)
+    return _FactorGatedMatcher(
+        matcher,
+        facs,
+        line_bounded=not A.may_match_newline(tree),
+        seedable=seeded,
+    )
+
+
+def _gate_counts(gates) -> Tuple[int, int]:
+    return sum(g.cleared for g in gates), sum(g.passed for g in gates)
+
+
 class Engine:
-    def __init__(self, patterns, config: Optional[EngineConfig] = None, scanner=None):
-        """``scanner``: a device scanner built earlier for the same
-        patterns, mode, buffer size, devices and shard count (the scan
-        server's cache), used in place of building one."""
+    def __init__(
+        self,
+        patterns,
+        config: Optional[EngineConfig] = None,
+        scanner=None,
+        unit: Optional[CompiledUnit] = None,
+    ):
+        """``unit``: the patterns compiled earlier under an equal
+        ``compile_key``, and ``scanner``: a device scanner built earlier
+        for the same patterns, mode, buffer size, devices and shard
+        count (the scan server's caches), each used in place of building
+        one."""
         self.cfg = config or EngineConfig()
         self.stats = ScanStats(recording=self.cfg.record)
         if self.cfg.record:
@@ -566,18 +697,13 @@ class Engine:
         if isinstance(patterns, (str, bytes)):
             patterns = [patterns]
         with self.stats.span("compile"):
-            self.compiled: CompiledPattern = compile_multi(
-                patterns, literal_mode=(self.cfg.mode == "literal")
-            )
-            self._exact = self._make_exact_matcher()
-            self._gates = [
-                m
-                for m in getattr(self._exact, "matchers", [self._exact])
-                if isinstance(m, _ClassGatedMatcher)
-            ]
-            self._line_narrow = not any(
-                A.may_match_newline(t) for t in self.compiled.asts
-            )
+            self.unit = unit or compile_unit(patterns, self.cfg)
+        self.compiled: CompiledPattern = self.unit.compiled
+        self._exact = self.unit.exact
+        self._gates = self.unit.gates
+        self._line_narrow = self.unit.line_narrow
+        # a cached unit's gates count every request's searches
+        self._gates0 = _gate_counts(self._gates)
         self.err: str = ""
         self._scanner = scanner
         if self.cfg.device != "none":
@@ -586,74 +712,6 @@ class Engine:
             if self._device_usable():
                 with self.stats.span("scanner"):
                     self._get_scanner()
-
-    # -- exact engine selection ----------------------------------------
-
-    def _make_exact_matcher(self):
-        cp = self.compiled
-        # exact-literal fast path: patterns denoting exactly one string
-        # verify via bytes.find (C memmem) — identical results in every
-        # mode; the empty pattern and the capture quirk are excluded
-        lits = [A.exact_literal(t) for t in cp.asts]
-        if all(l for l in lits) and not cp.has_captures:
-            if len(lits) == 1:
-                return _LiteralMatcher(lits[0])
-            return _MultiMatcher([_LiteralMatcher(l) for l in lits], cp.asts)
-        if self.cfg.mode == "pcre2":
-            from grab_tpu_torch.regex import pcre2
-
-            if pcre2.available():
-                matchers = []
-                for p, t in zip(cp.patterns, cp.asts):
-                    m = pcre2.PCRE2Pattern(p)
-                    if not A.may_match_newline(t) and not A.has_anchors(t):
-                        m = _WindowBoundedMatcher(m)
-                    # factor gate (bytes.find prefilter) applies to any
-                    # exact engine; seeded start-ranges need start_hi
-                    # support, which the pcre2 API lacks — gate only
-                    matchers.append(self._factor_gate(m, t, seeded=False))
-                if cp.n_patterns == 1:
-                    return matchers[0]
-                return _MultiMatcher(matchers, cp.asts)
-            # fall through to our engine (semantics match on the subset)
-        quirk = self.cfg.mode == "pcre1" and self.cfg.pcre1_quirks
-        # PCRE1 3-slot-ovector quirk applies per pattern: a capturing
-        # pattern yields no matches, but the rest of a -H batch still
-        # scans (each pattern is its own pcre in the reference)
-        matchers = [
-            _NeverMatch()
-            if quirk and A.has_captures(t)
-            else self._factor_gate(m, t)
-            for m, t in zip(cp.matchers, cp.asts)
-        ]
-        if all(isinstance(m, _NeverMatch) for m in matchers):
-            return _NeverMatch()
-        if cp.n_patterns == 1:
-            return matchers[0]
-        return _MultiMatcher(matchers, cp.asts)
-
-    @staticmethod
-    def _factor_gate(matcher, tree, seeded: bool = True):
-        # mandatory_literals returns an ALTERNATIVE set (any match
-        # contains >= 1 member): the gate fires on the earliest
-        # occurrence of ANY member (round 2 only gated singleton sets —
-        # `l[imn]nus` got no gate and fell to the ~2 MB/s raw VM walk)
-        facs = A.mandatory_literals(tree)
-        if not facs or len(facs) > 8 or any(len(f) < 2 for f in facs):
-            # no literal gate: gate on the match's first classes instead
-            seqs = A.device_class_sequences(tree)
-            if seqs and _ClassGatedMatcher.selective(seqs):
-                return _ClassGatedMatcher(matcher, seqs)
-            return matcher
-        mx = A.max_len(tree)
-        if seeded and mx is not None and mx - min(len(f) for f in facs) <= 64:
-            return _FactorSeededMatcher(matcher, facs, mx)
-        return _FactorGatedMatcher(
-            matcher,
-            facs,
-            line_bounded=not A.may_match_newline(tree),
-            seedable=seeded,
-        )
 
     # -- device availability -------------------------------------------
 
@@ -758,10 +816,8 @@ class Engine:
         replayer = ChunkReplayer(self.cfg.output, searcher, self.compiled.min_len)
         replayer.scan_buffer(path, data, emit)
         self.stats.replay_bytes += searcher.searched
-        self.stats.seqgate = (
-            sum(g.cleared for g in self._gates),
-            sum(g.passed for g in self._gates),
-        )
+        cleared, passed = _gate_counts(self._gates)
+        self.stats.seqgate = (cleared - self._gates0[0], passed - self._gates0[1])
 
     def scan_corpus(
         self,

@@ -2,8 +2,9 @@
 
 The reference is a one-shot CLI; re-running it costs one pcre_compile
 (~µs). Here every process pays for the CUDA context, the kernels' build
-(or load) and, for a -H batch, the scanner's tables before the first
-byte is scanned, so production serving keeps one process alive:
+(or load) and, for a -H batch, the patterns' compile and the scanner's
+tables before the first byte is scanned, so production serving keeps
+one process alive:
 
     python -m grab_tpu_torch.server /tmp/tpugrep.sock   # start daemon
     tpugrep --via /tmp/tpugrep.sock -r <regex> <path>   # fast client
@@ -15,25 +16,32 @@ Protocol (unix stream socket):
               travels as frames tagged by a leading 0x01 byte (stdout
               frames lead with 0x00).
 
-Plans (``DeviceScanner``: which kernels, and their tables) are cached
-across requests keyed by (patterns, mode, buffer size, device setting,
-effective shards); the patterns are compiled again for every request,
-and output flags are per-request. The upload rings and streams belong
-to the device lanes (``scan_pipeline.Lane``), which every cached plan
-shares, so a miss builds tables, not a ring, and the server's memory
-does not grow with the plans it has seen. The scan device is the server
-process's (GRAB_TPU_TORCH_DEVICE, default cuda). The cache counts its
-hits and misses; a request's ``--stats`` line says which it was
-(``scanner=hit|miss``; ``none`` for a host-only scan), the running
-totals so far (``cache=HITS/MISSES``) and the request's number
+Compiled units (``engine.CompiledUnit``: the patterns' scan unit, the
+exact matcher the replay runs and its class-sequence gates) are cached
+keyed by what the compile reads: the patterns, the mode, the PCRE1
+capture quirk and the active ctype tables (by content). The
+``COMPILED_CAP`` most recently used are kept; a host-only request uses
+them too. A repeated request therefore skips the compile (seconds for a
+large -H batch), and its ``compile`` span reads only the lookup. Plans
+(``DeviceScanner``: which kernels, and their tables) are cached keyed by
+(patterns, mode, buffer size, device setting, effective shards); output
+flags are per-request. The upload rings and streams belong to the device
+lanes (``scan_pipeline.Lane``), which every cached plan shares, so a
+miss builds tables, not a ring, and the server's memory does not grow
+with the plans it has seen. The scan device is the server process's
+(GRAB_TPU_TORCH_DEVICE, default cuda). Both caches count their hits and
+misses; a request's ``--stats`` line says which it was
+(``scanner=hit|miss``, ``none`` for a host-only scan;
+``compiled=hit|miss``, ``none`` outside the server), the scanner cache's
+running totals (``cache=HITS/MISSES``) and the request's number
 (``req=``). Its ``pulls=N`` counts the batches whose flags left the
 device, and ``inplace=N`` the batches filled straight into the buffer
-the scan reads (the lane's pinned upload slot): every batch,
-except where a stride member alone reads the batch (its host transpose
-into the slot); ``replay_bytes=N`` the bytes of the candidate windows
-the host replay searched; ``seqgate=C/P`` the searches of the exact
-matchers gated by their class sequences, C settled without the VM and
-P handed to it.
+the scan reads (the lane's pinned upload slot): every batch, except
+where a stride member alone reads the batch (its host transpose into the
+slot); ``replay_bytes=N`` the bytes of the candidate windows the host
+replay searched; ``seqgate=C/P`` the request's searches of the exact
+matchers gated by their class sequences, C settled without the VM and P
+handed to it.
 
 The operator's read of the start is the listening line on stderr:
 
@@ -56,21 +64,38 @@ import os  # noqa: E402
 import socket  # noqa: E402
 import struct  # noqa: E402
 import sys  # noqa: E402
+from collections import OrderedDict  # noqa: E402
 from typing import Dict, List, Tuple  # noqa: E402
 
 from grab_tpu_torch import cli as cli_mod  # noqa: E402
-from grab_tpu_torch.engine import Engine, EngineConfig, effective_shards  # noqa: E402
+from grab_tpu_torch.engine import (  # noqa: E402
+    CompiledUnit,
+    Engine,
+    EngineConfig,
+    compile_key,
+    effective_shards,
+)
 
 _IMPORT_S = time.perf_counter() - _T_START
+
+
+COMPILED_CAP = 64  # compiled units kept; past it the least recently used goes
 
 
 class _EngineCache:
     def __init__(self):
         self._scanners: Dict[tuple, object] = {}
+        self._compiled: "OrderedDict[tuple, CompiledUnit]" = OrderedDict()
         self.hits = 0  # requests served by a cached scanner
         self.misses = 0  # requests that built one
+        self.compile_hits = 0  # requests served by a cached compiled unit
+        self.compile_misses = 0  # requests that compiled one
 
     def engine_for(self, patterns: List[bytes], cfg: EngineConfig) -> Engine:
+        ckey = compile_key(patterns, cfg)
+        unit = self._compiled.get(ckey)
+        if unit is not None:
+            self._compiled.move_to_end(ckey)
         # shard count and devices are part of the scanner's identity: a
         # 1-shard scanner must not serve a later -n N request
         key = (
@@ -81,7 +106,16 @@ class _EngineCache:
             effective_shards(cfg),
         )
         cached = self._scanners.get(key)
-        eng = Engine(patterns, cfg, scanner=cached)
+        eng = Engine(patterns, cfg, scanner=cached, unit=unit)
+        if unit is None:
+            self._compiled[ckey] = eng.unit
+            if len(self._compiled) > COMPILED_CAP:
+                self._compiled.popitem(last=False)
+            self.compile_misses += 1
+            eng.stats.compiled = "miss"
+        else:
+            self.compile_hits += 1
+            eng.stats.compiled = "hit"
         if eng._scanner is not None:
             self._scanners[key] = eng._scanner
             if cached is None:

@@ -216,11 +216,15 @@ def test_sweep_stdout_equals_reference(sweep_tree, monkeypatch, shards):
 
 
 def test_sweep_through_the_server_equals_reference(sweep_tree, monkeypatch):
-    """A cache miss, then a hit on the cached scanner."""
+    """A cache miss, then a hit on the cached scanner and the cached
+    compiled patterns, with the same class-gate counts."""
     corpus, want = sweep_tree
     monkeypatch.setenv("GRAB_TPU_TORCH_DEVICE", "cpu")
     cache = server_mod._EngineCache()
     argv = ["--stats", "-r", "-H", BATCH_FILE, corpus.root]
+    gates = []
     for i, state in enumerate(("miss", "hit")):
         out, err = _sweep(argv, cache, request=i + 1)
-        assert out == want and f"scanner={state}:" in err
+        assert out == want and f"scanner={state}:" in err and f" compiled={state} " in err
+        gates.append(re.search(r" seqgate=(\d+/\d+) ", err)[1])
+    assert gates[0] == gates[1] != "0/0"

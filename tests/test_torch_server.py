@@ -8,6 +8,7 @@ package's byte for byte (tolerance: exact).
 import io
 import json
 import os
+import re
 import socket
 import struct
 import sys
@@ -176,7 +177,8 @@ def test_server_survives_a_client_that_hangs_up(sock, tree, monkeypatch):
 def test_cache_keys_scanners():
     """The same (patterns, mode, buffer, devices, shards) gets the same
     scanner and builds no second one; another shard count, device list,
-    buffer size, mode or pattern set gets its own."""
+    buffer size, mode or pattern set gets its own. The same patterns and
+    mode get the same compiled unit; another mode compiles anew."""
     cache = server_mod._EngineCache()
 
     def eng(pats=(b"needleXY",), **kw):
@@ -185,7 +187,7 @@ def test_cache_keys_scanners():
 
     a, b = eng(), eng()
     assert a is not b and a._scanner is b._scanner and isinstance(a._scanner, DeviceScanner)
-    assert a.compiled is not b.compiled  # the patterns are compiled per request
+    assert a.compiled is b.compiled  # the server keeps the compiled patterns
     n2, n2b, n4 = eng(n_shards=2), eng(n_shards=2), eng(n_shards=4)
     assert isinstance(n2._scanner, DeviceScanner) and len(n2._scanner.lanes) == 2
     assert n2._scanner is n2b._scanner and n2._scanner is not a._scanner
@@ -201,9 +203,122 @@ def test_cache_keys_scanners():
     assert eng(device="none")._scanner is None
     assert eng(pats=(b"(needle)",))._scanner is None
     assert len(cache._scanners) == 7
+    assert eng(mode="pcre2").compiled is not a.compiled  # another mode compiles anew
     out = []
     b.scan_data("f", b"xx needleXY yy\n" * 50, out.append)
     assert b"".join(out).count(b"needleXY") >= 1
+
+
+@pytest.fixture
+def ctype_tables():
+    """The regex ctype module, its active tables put back afterwards."""
+    from grab_tpu_torch.regex import ctype
+
+    saved = ctype.active()
+    yield ctype
+    ctype.set_tables(saved)
+
+
+def _unit_cache_engine(cache, pats=(rb"foo[a-z]+bar",), **kw):
+    kw.setdefault("device", "none")
+    return cache.engine_for(list(pats), EngineConfig(**kw))
+
+
+KEY_CHANGES = {
+    "mode": dict(mode="pcre2"),
+    "pcre1_quirks": dict(pcre1_quirks=False),
+    "patterns": dict(pats=(rb"foo[a-z]+bar", b"needle")),
+    "pattern order": dict(pats=(b"needle", rb"foo[a-z]+bar")),
+}
+
+
+@pytest.mark.parametrize("change", list(KEY_CHANGES) + ["ctype tables"])
+def test_compile_cache_keys_what_the_compile_reads(change, ctype_tables):
+    """The same patterns, mode, quirk setting and ctype tables get the
+    same compiled unit, counted as a hit; a change to any of them
+    compiles its own, counted as a miss."""
+    ctype_tables.set_tables(None)
+    cache = server_mod._EngineCache()
+    a, b = _unit_cache_engine(cache), _unit_cache_engine(cache)
+    assert a.unit is b.unit and a.compiled is b.compiled and a._exact is b._exact
+    assert (a.stats.compiled, b.stats.compiled) == ("miss", "hit")
+    if change == "ctype tables":
+        ctype_tables.set_tables(ctype_tables.libc_tables())
+        c = _unit_cache_engine(cache)
+    else:
+        c = _unit_cache_engine(cache, **KEY_CHANGES[change])
+    assert c.unit is not a.unit and c.stats.compiled == "miss"
+    assert (cache.compile_hits, cache.compile_misses) == (1, 2)
+    assert len(cache._compiled) == 2
+
+
+def test_compile_cache_ignores_what_the_compile_does_not_read(ctype_tables):
+    """Buffer size, devices and shard count are the plan's, not the
+    compile's: one unit serves them all, a host-only request included."""
+    ctype_tables.set_tables(None)
+    cache = server_mod._EngineCache()
+    host = _unit_cache_engine(cache)
+    others = [
+        _unit_cache_engine(cache, device="cpu"),
+        _unit_cache_engine(cache, device=CPU4, n_shards=4),
+        _unit_cache_engine(cache, device="cpu", scan_buf_size=64 << 10),
+    ]
+    assert host._scanner is None and all(e._scanner is not None for e in others)
+    assert all(e.unit is host.unit and e.stats.compiled == "hit" for e in others)
+    assert (cache.compile_hits, cache.compile_misses) == (3, 1)
+
+
+def test_compile_cache_evicts_the_least_recently_used(monkeypatch, ctype_tables):
+    ctype_tables.set_tables(None)
+    monkeypatch.setattr(server_mod, "COMPILED_CAP", 2)
+    cache = server_mod._EngineCache()
+    first = _unit_cache_engine(cache, pats=(b"one",)).unit
+    second = _unit_cache_engine(cache, pats=(b"two",)).unit
+    assert _unit_cache_engine(cache, pats=(b"one",)).unit is first  # now the newest
+    _unit_cache_engine(cache, pats=(b"three",))
+    assert len(cache._compiled) == 2
+    assert _unit_cache_engine(cache, pats=(b"one",)).unit is first
+    again = _unit_cache_engine(cache, pats=(b"two",))
+    assert again.stats.compiled == "miss" and again.unit is not second
+    assert (cache.compile_hits, cache.compile_misses) == (2, 4)
+
+
+@pytest.fixture(scope="module")
+def batch_tree(tmp_path_factory):
+    """A small tree with plants of a -H batch: a literal, a regex with a
+    literal factor, and a regex with none (a class-gated matcher)."""
+    root = tmp_path_factory.mktemp("batchtree")
+    rng = np.random.default_rng(7)
+    (root / "sub").mkdir()
+    plants = [b"needle07", b"fooqqbar", b"555-0123", b"call 867-5309 now"]
+    for i, n in enumerate((30_000, 70_000, 120_000)):
+        data = bytearray(rng.integers(97, 123, size=n, dtype=np.uint8))
+        data[::97] = b"\n" * len(data[::97])
+        for k, p in enumerate(range(300 + 41 * i, n - 40, 6011)):
+            plant = plants[(i + k) % len(plants)]
+            data[p : p + len(plant)] = plant
+        (root / ("sub" if i % 2 else ".") / f"f{i}.txt").write_bytes(bytes(data))
+    (root / "batch.txt").write_bytes(b"needle07\nfoo[a-z]+bar\n[0-9]{3}-[0-9]{4}\n")
+    return root
+
+
+def test_cached_batch_prints_what_an_uncached_engine_prints(batch_tree):
+    """Two identical -H requests through one cache: the second takes the
+    first's compiled unit, and both print the uncached Engine's stdout
+    byte for byte and its seqgate= counts."""
+    argv = ["--stats", "-r", "-O", "-H", str(batch_tree / "batch.txt"), str(batch_tree)]
+    rc, direct, derr = _direct(port_cli, argv)
+    assert rc == 0 and b"555-0123" in direct and b"fooqqbar" in direct
+    gate = re.compile(r" compiled=(\w+) seqgate=(\d+/\d+) ")
+    want = gate.search(derr)
+    assert want[1] == "none" and want[2] != "0/0"
+    cache = server_mod._EngineCache()
+    for request, kind in ((1, "miss"), (2, "hit")):
+        out, err = io.BytesIO(), io.StringIO()
+        assert server_mod._run_with_cache(argv, cache, out, err, request) == 0
+        assert out.getvalue() == direct
+        got = gate.search(err.getvalue())
+        assert (got[1], got[2]) == (kind, want[2])
 
 
 def test_cached_plans_share_the_device_lane(monkeypatch):

@@ -155,7 +155,7 @@ def test_stats_line_keeps_its_fields(tree):
     assert re.search(rb"scanner=none:[0-9.]+s .* pulls=\d+ inplace=%d replay_bytes=%d "
                      rb"kernel_load=0\.0000s/0/0\n" % (st.device_batches, st.replay_bytes), line)
     assert st.replay_bytes > 0
-    assert re.search(rb" pull=[0-9.]+s seqgate=%d/%d pulls=\d+ " % st.seqgate, line)
+    assert re.search(rb" pull=[0-9.]+s compiled=none seqgate=%d/%d pulls=\d+ " % st.seqgate, line)
 
 
 def test_trace_holds_the_spans_as_ranges(tree, tmp_path):
@@ -199,6 +199,11 @@ def test_scanner_cache_miss_then_hit(tree):
     assert b" | req=1 " in e1 and b"scanner=miss:" in e1 and e1.endswith(b" cache=0/1\n")
     assert b" | req=2 " in e2 and b"scanner=hit:" in e2 and e2.endswith(b" cache=1/1\n")
     assert (cache.hits, cache.misses) == (1, 1)
+    assert b" compiled=miss seqgate=" in e1 and b" compiled=hit seqgate=" in e2
+    assert (cache.compile_hits, cache.compile_misses) == (1, 1)
+    # the span a hit reads is the lookup: far under the compile it saved
+    c1, c2 = (float(re.search(rb" compile=([0-9.]+)s ", e)[1]) for e in (e1, e2))
+    assert c2 <= c1
 
 
 def test_kernel_load_is_the_requests_share(tree, monkeypatch):
